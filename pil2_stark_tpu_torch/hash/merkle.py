@@ -1,0 +1,111 @@
+"""Poseidon-GL Merkle tree on the host (arity 2 over 4-element digests).
+
+Reproduces the reference's tree shape bit-exactly
+(pil2-stark-js src/helpers/hash/merklehash/merklehash_p.js):
+
+- leaves: linear hash of each `width`-element row (normal or split layout);
+- every non-root level is padded with zero digests to an even count,
+  per the `_getNNodes` rule nextN = (floor((n-1)/8)+1)*4 (merklehash_p.js:28-42);
+- inner nodes: poseidon(left4 || right4, zero capacity)[:4];
+- proofs: per-level sibling digest, sibling index idx^1 within the padded
+  level (merklehash_p.js:142-168).
+
+Host copy of pil2_stark_tpu/hash/merkle.py's numpy backend.  The prover
+builds its trees on the device (stark/device.py); this module serves the
+verifier (``verify_group_proof`` hashes one path on python ints) and small
+host trees.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from . import linearhash, poseidon_gl
+
+
+@dataclasses.dataclass
+class MerkleTree:
+    width: int
+    height: int
+    elements: np.ndarray  # (height, width) uint64, row-major
+    levels: list  # [level0 (padded), ..., root (1,4)] each (n,4) uint64
+
+    @property
+    def root(self) -> np.ndarray:
+        return self.levels[-1][0]
+
+
+def _pad_even(digests: np.ndarray) -> np.ndarray:
+    n = digests.shape[0]
+    target = 2 * ((n + 1) // 2)
+    if target == n:
+        return digests
+    out = np.zeros((target, 4), dtype=np.uint64)
+    out[:n] = digests
+    return out
+
+
+def merkelize(buff: np.ndarray, width: int, height: int,
+              split_linear_hash: bool = False) -> MerkleTree:
+    elements = np.asarray(buff, dtype=np.uint64).reshape(height, width)
+    fn = linearhash.linear_hash_split if split_linear_hash else linearhash.linear_hash
+    levels = [_pad_even(fn(elements))]
+    n = height
+    while n > 1:
+        nxt = poseidon_gl.hash_n(levels[-1].reshape(-1, 8))
+        n = nxt.shape[0]
+        levels.append(_pad_even(nxt) if n > 1 else nxt)
+    return MerkleTree(width=width, height=height, elements=elements, levels=levels)
+
+
+def get_group_proof(tree: MerkleTree, idx: int):
+    """Returns (row values, sibling path) as in merklehash_p.js:140-167."""
+    if idx < 0 or idx >= tree.height:
+        raise IndexError("Out of range")
+    values = tree.elements[idx].copy()
+    proof = []
+    i = idx
+    for lvl in tree.levels[:-1]:
+        proof.append(lvl[i ^ 1].copy())
+        i >>= 1
+    return values, proof
+
+
+def _sponge_int(values: list) -> list:
+    """linearhash.linear_hash of one row, on python ints."""
+    if len(values) <= 4:
+        return values + [0] * (4 - len(values))
+    st = [0, 0, 0, 0]
+    for c in range(0, len(values), 8):
+        chunk = values[c:c + 8]
+        st = poseidon_gl.permute_int(chunk + [0] * (8 - len(chunk)) + st)[:4]
+    return st
+
+
+def _linear_hash_int(values: list, split: bool) -> list:
+    if not split or len(values) <= 4:
+        return _sponge_int(values)
+    w = len(values)
+    batch = int(max(8, (w + 3) / 4))
+    cat = []
+    for s in range(0, w, batch):
+        cat += _sponge_int(values[s:s + batch])
+    return _sponge_int(cat)
+
+
+def calculate_root_from_proof(proof, idx: int, values, split_linear_hash: bool = False):
+    """Recompute the root from a (values, siblings) proof
+    (merklehash_p.js:169-206)."""
+    h = _linear_hash_int([int(v) for v in values], split_linear_hash)
+    for sib in proof:
+        sib = [int(v) for v in sib]
+        inp = sib + h if idx & 1 else h + sib
+        h = poseidon_gl.permute_int(inp + [0, 0, 0, 0])[:4]
+        idx >>= 1
+    return np.array(h, dtype=np.uint64)
+
+
+def verify_group_proof(root, proof, idx: int, values, split_linear_hash: bool = False) -> bool:
+    got = calculate_root_from_proof(proof, idx, values, split_linear_hash)
+    return bool(np.array_equal(np.asarray(root, dtype=np.uint64), got))

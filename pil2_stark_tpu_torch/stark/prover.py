@@ -1,0 +1,319 @@
+"""STARK proof generation on one device — the stage loop.
+
+Counterpart of the device-planar path of pil2_stark_tpu/stark/prover.py
+(itself pil2-stark-js src/prover/prover.js proofGen and
+src/stark/stark_gen_helpers.js).  Per Fiat-Shamir stage: resolve hints to
+fixpoint on the host → evaluate the im-pols on the device → upload, LDE and
+Merkelize on the device → absorb the root → squeeze challenges; then the Q
+split, the DEEP evals, xDivXSubXi, the FRI polynomial, the FRI folds and
+one batched query gather.  The transcript and the control flow stay on the
+host.  The LDEs and the Q split run on kernels B2/B3 (ops/cuda_ntt.py),
+every Merkle tree on kernel B4 (hash/cuda_poseidon.py).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..field import f3, gl64
+from ..field import torch_gl as gl
+from ..ops import ntt as ntt_ops
+from ..ops import torch_tac
+from ..utils.timing import PhaseTimer
+from . import device as dev
+from . import hints
+from .context import ProverCtx, resolve_device
+from .fri import FRI
+
+
+def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=None, logger=None):
+    """Returns {proof, publics, challenges, challengesFRISteps, timings,
+    peakBytes}; peakBytes holds each phase's peak device memory on CUDA.
+
+    inputs = (stage-1 witness columns as an (N, nCm1) u64 array, publics).
+    const_tree is the DeviceTree from stark.setup.load_setup.  device=None
+    means "cuda" and raises when CUDA is unavailable; tests pass "cpu".
+    """
+    device = resolve_device(device)
+    if const_tree.elements.device != device:
+        raise ValueError(
+            f"the const tree lives on {const_tree.elements.device}, the prove on {device}")
+    timer = PhaseTimer(logger, device)
+    with timer.phase("init"):
+        ctx = ProverCtx(stark_info, expressions_info, const_pols, const_tree, device)
+    ctx.timer = timer
+
+    cm1_values, publics_inputs = inputs
+    n_cm1 = sum(1 for c in stark_info["cmPolsMap"] if c["stage"] == 1)
+    ctx.buffers["cm1_n"][:, : cm1_values.shape[1]] = cm1_values
+    for i in range(n_cm1):
+        ctx.set_symbol_calculated({"op": "cm", "id": i})
+    for i in range(stark_info["nPublics"]):
+        ctx.publics[i] = int(publics_inputs[i])
+        ctx.set_symbol_calculated({"op": "public", "stage": 1, "id": i})
+
+    challenge = None
+    q_stage = stark_info["nStages"] + 1
+    for stage in range(1, q_stage + 1):
+        if _n_challenges(stark_info, stage) > 0:
+            _set_challenges(stage, ctx, challenge)
+        with timer.phase(f"stage{stage}.witness"):
+            _compute_stage(stage, ctx)
+        if stage == 1:
+            _add_publics_transcript(ctx)
+        with timer.phase(f"stage{stage}.commit"):
+            commits = _compute_q(ctx) if stage == q_stage else _extend_and_merkelize(stage, ctx)
+        _add_transcript(ctx.transcript, commits)
+        if _n_challenges(stark_info, stage) > 0:
+            challenge = ctx.transcript.get_field()
+
+    if ctx.dpending:
+        raise RuntimeError(
+            f"device TAC writes to section(s) {sorted(ctx.dpending)} "
+            "were never consumed by a stage commit")
+
+    _set_challenges(stark_info["nStages"] + 2, ctx, challenge)
+    with timer.phase("evals"):
+        evals_commits = _compute_evals(ctx)
+    _add_transcript(ctx.transcript, evals_commits)
+    challenge = ctx.transcript.get_field()
+
+    _set_challenges(stark_info["nStages"] + 3, ctx, challenge)
+    with timer.phase("friPol"):
+        _compute_fri_pol(ctx)
+
+    ss = stark_info["starkStruct"]
+    fri = FRI(ss, ctx.mh)
+    fri_proof = [{}]
+    fri_trees = [[ctx.trees[i + 1] for i in range(stark_info["nStages"] + 1)] + [ctx.const_tree]]
+    pol = ctx.fri_pol
+    n_steps = len(ss["steps"])
+    for step in range(n_steps):
+        challenge = ctx.transcript.get_field()
+        ctx.challenges_fri_steps.append(challenge)
+        with timer.phase(f"friFold{step}"):
+            fold = fri.fold(step, pol, challenge)
+        pol = fold["pol"]
+        fri_proof.append(fold["proof"])
+        if step < n_steps - 1:
+            fri_trees.append(fold["tree"])
+            commits = [fold["proof"]["root"]]
+        elif ss.get("hashCommits"):
+            commits = [_hash_commits(ctx, pol)]
+        else:
+            commits = [tuple(int(x) for x in v) for v in pol]
+        _add_transcript(ctx.transcript, commits)
+
+    challenge_queries = ctx.transcript.get_field()
+    ctx.challenges_fri_steps.append(challenge_queries)
+    fri_queries = _get_permutations(ctx, challenge_queries)
+    with timer.phase("queries"):
+        fri.proof_queries(fri_proof, fri_trees, fri_queries)
+
+    proof = {"evals": ctx.evals, "subproofValues": ctx.subproof_values, "fri": fri_proof}
+    for i in range(stark_info["nStages"] + 1):
+        proof[f"root{i + 1}"] = ctx.mh.root(ctx.trees[i + 1])
+
+    # the witness upload is timed inside the commit phase: report it apart
+    for key, t_up in list(timer.timings.items()):
+        if key.endswith(".upload"):
+            ckey = key.replace(".upload", ".commit")
+            if ckey in timer.timings:
+                timer.timings[ckey] = max(0.0, timer.timings[ckey] - t_up)
+
+    return {
+        "proof": proof,
+        "publics": ctx.publics,
+        "challenges": ctx.challenges,
+        "challengesFRISteps": ctx.challenges_fri_steps,
+        "timings": timer.summary(),
+        "peakBytes": timer.peaks,
+    }
+
+
+# ---------------------------------------------------------------------------
+# stages
+
+
+def _n_challenges(pil_info, stage):
+    return sum(1 for c in pil_info["challengesMap"] if c["stage"] == stage)
+
+
+def _set_challenges(stage, ctx, challenge):
+    """setChallengesStark (stark_gen_helpers.js:414-439)."""
+    n = _n_challenges(ctx.pil_info, stage)
+    while len(ctx.challenges) < stage:
+        ctx.challenges.append([])
+    ctx.challenges[stage - 1] = []
+    for i in range(n):
+        if i > 0 or not challenge:
+            ctx.challenges[stage - 1].append(ctx.transcript.get_field())
+        else:
+            ctx.challenges[stage - 1].append(challenge)
+    if stage < ctx.pil_info["nStages"] + 1:
+        for i, c in enumerate(ctx.pil_info["challengesMap"]):
+            if c["stage"] == stage:
+                ctx.set_symbol_calculated({"op": "challenge", "stage": stage, "id": i})
+
+
+def _compute_stage(stage, ctx):
+    """computeStage (prover.js:192-231)."""
+    q_stage = ctx.pil_info["nStages"] + 1
+    if stage == q_stage:
+        code = next(e for e in ctx.expressions_info["expressionsCode"]
+                    if e["expId"] == ctx.pil_info["cExpId"])
+        _run_code(ctx, code["code"], "ext")
+        return
+    missing = ctx.stage_symbols_missing(stage)
+    while missing > 0:
+        hints.apply_hints(ctx, stage)
+        updated = ctx.stage_symbols_missing(stage)
+        if updated == missing:
+            raise RuntimeError(f"Something went wrong when calculating symbols for stage {stage}")
+        missing = updated
+    if stage == q_stage - 1:
+        code = ctx.expressions_info["imPolsCode"][stage - 1]
+        if code["code"]:
+            _run_code(ctx, code, "n")
+
+
+def _run_code(ctx, code_obj, dom):
+    """Run a TAC program on the device.  Base-domain outputs (the im-pols)
+    stay on the device, staged for _extend_and_merkelize to splice into the
+    section; extended-domain programs leave Q or the FRI polynomial."""
+    executor = torch_tac.make_executor(code_obj, dom, ctx.pil_info, ctx.n_bits, ctx.n_bits_ext)
+    out = executor(torch_tac.pack_inputs(ctx, dom))
+    if dom == "ext":
+        if "q" in out:
+            ctx.dq = out["q"]
+        if "f" in out:
+            ctx.df = out["f"]
+        if out["cm"]:
+            raise NotImplementedError("ext-domain TAC cm writes are not used by the stark pipeline")
+        return
+    for (section, offset, dim), val in out["cm"].items():
+        ctx.dpending.setdefault(section, {})[offset] = (val, dim)
+
+
+def _extend_and_merkelize(stage, ctx):
+    """Upload the stage's host-computed columns (splicing in the device im-pols),
+    LDE, Merkelize (stark_gen_helpers.js:388-412)."""
+    buff_from = ctx.buffers[f"cm{stage}_n"]
+    n_pols = ctx.pil_info["mapSectionsN"][f"cm{stage}"]
+    t_up0 = time.perf_counter()
+    pending = ctx.dpending.pop(f"cm{stage}", {})
+    parts, cursor = [], 0
+    for offset in sorted(pending) + [n_pols]:
+        if offset > cursor:
+            host = np.ascontiguousarray(buff_from.T[cursor:offset])
+            parts.append(gl.from_u64(host, ctx.device))
+        if offset < n_pols:
+            val, dim = pending[offset]
+            parts.append(val)
+            cursor = offset + dim
+    if parts:
+        dev_n = torch.cat(parts) if len(parts) > 1 else parts[0]
+    else:
+        dev_n = torch.zeros((0, ctx.N), dtype=torch.int64, device=ctx.device)
+    ctx.timer.sync()
+    key = f"stage{stage}.upload"
+    ctx.timer.timings[key] = ctx.timer.timings.get(key, 0.0) + time.perf_counter() - t_up0
+    ctx.dsections["n"][f"cm{stage}"] = dev_n
+    if n_pols > 0:
+        ext = ntt_ops.lde_planar(dev_n, ctx.n_bits, ctx.n_bits_ext)
+    else:
+        ext = torch.zeros((0, ctx.ext_N), dtype=torch.int64, device=ctx.device)
+    ctx.dsections["ext"][f"cm{stage}"] = ext
+    ctx.trees[stage] = dev.merkelize(ext, n_pols, ctx.ext_N, ctx.mh.split_linear_hash)
+    return [ctx.mh.root(ctx.trees[stage])]
+
+
+def _compute_q(ctx):
+    """computeQStark (stark_gen_helpers.js:168-208): iNTT(ext) of q, split
+    into qDeg chunks scaled by shiftIn^p, NTT back, Merkelize."""
+    pil_info = ctx.pil_info
+    q_stage = pil_info["nStages"] + 1
+    q_dim, q_deg = pil_info["qDim"], pil_info["qDeg"]
+    n, ext_n = ctx.N, ctx.ext_N
+    shift_in = pow(pow(gl64.SHIFT_INT, gl64.P_INT - 2, gl64.P_INT), n, gl64.P_INT)
+    n_inv = pow(ext_n, gl64.P_INT - 2, gl64.P_INT)
+    # 1/extN of the iNTT folded into the shiftIn^p scale
+    scale = gl.from_u64(gl64.powers(shift_in, q_deg, start=n_inv), ctx.device)
+    qq1 = ntt_ops.planar_ntt(ctx.dq, ctx.n_bits_ext, True)
+    qq2 = gl.mul(qq1[:, : q_deg * n].reshape(q_dim, q_deg, n), scale[None, :, None])
+    padded = torch.zeros((q_deg * q_dim, ext_n), dtype=torch.int64, device=ctx.device)
+    padded[:, :n] = qq2.permute(1, 0, 2).reshape(q_deg * q_dim, n)
+    ext = ntt_ops.planar_ntt(padded, ctx.n_bits_ext, False)
+    ctx.dsections["ext"][f"cm{q_stage}"] = ext
+    n_pols_q = pil_info["mapSectionsN"].get(f"cm{q_stage}", 0)
+    ctx.trees[q_stage] = dev.merkelize(ext, n_pols_q, ext_n, ctx.mh.split_linear_hash)
+    return [ctx.mh.root(ctx.trees[q_stage])]
+
+
+def _opening_xis(ctx):
+    xi = ctx.challenges[ctx.pil_info["nStages"] + 1][0]
+    out = []
+    for opening in ctx.pil_info["openingPoints"]:
+        w = pow(gl64.w(ctx.n_bits), abs(int(opening)), gl64.P_INT)
+        if opening < 0:
+            w = pow(w, gl64.P_INT - 2, gl64.P_INT)
+        out.append(f3.mul(xi, w))
+    return out
+
+
+def _compute_evals(ctx):
+    """computeEvalsStark (stark_gen_helpers.js:210-273) on the device."""
+    xis = [f3.mul(x, f3.inv1(gl64.SHIFT_INT)) for x in _opening_xis(ctx)]
+    ctx.evals = dev.compute_evals(
+        ctx.pil_info, ctx.dsections["ext"], xis, ctx.n_bits, 1 << ctx.extend_bits, ctx.device)
+    if ctx.pil_info["starkStruct"].get("hashCommits"):
+        return [_hash_commits(ctx, ctx.evals)]
+    return list(ctx.evals)
+
+
+def _compute_fri_pol(ctx):
+    """computeFRIStark (stark_gen_helpers.js:275-335)."""
+    ctx.dxdiv = dev.compute_xdiv(ctx.dx["ext"], [f3.as3(x) for x in _opening_xis(ctx)])
+    code = next(e for e in ctx.expressions_info["expressionsCode"]
+                if e["expId"] == ctx.pil_info["friExpId"])
+    _run_code(ctx, code["code"], "ext")
+    ctx.fri_pol = ctx.df
+
+
+def _add_publics_transcript(ctx):
+    """addPublicsTranscript (prover.js:150-188)."""
+    commits = [ctx.mh.root(ctx.const_tree)]
+    if ctx.pil_info["starkStruct"].get("hashCommits"):
+        commits.append(_hash_commits(ctx, ctx.publics))
+    else:
+        commits.extend(ctx.publics)
+    _add_transcript(ctx.transcript, commits)
+
+
+def _hash_commits(ctx, inputs):
+    """calculateHashStark: absorb into a fresh transcript, return state."""
+    t = ctx.mh.new_transcript()
+    for v in inputs:
+        t.put(_flatten(v))
+    return t.get_state()
+
+
+def _flatten(v):
+    if isinstance(v, np.ndarray):
+        return [int(x) for x in v.reshape(-1)]
+    return v
+
+
+def _add_transcript(transcript, inputs):
+    for v in inputs:
+        transcript.put(_flatten(v))
+
+
+def _get_permutations(ctx, challenge):
+    """getPermutationsStark: fresh transcript seeded with the query challenge."""
+    t = ctx.mh.new_transcript()
+    t.put(_flatten(challenge))
+    ss = ctx.pil_info["starkStruct"]
+    return t.get_permutations(ss["nQueries"], ss["steps"][0]["nBits"])

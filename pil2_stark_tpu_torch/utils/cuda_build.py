@@ -1,0 +1,103 @@
+"""Builds the port's CUDA sources (``csrc/*.cu``) into shared libraries.
+
+Each source has a plain C interface and is compiled on its own by ``nvcc``
+into ``_build/<name>-<digest>.so``, then loaded with ctypes.  The digest
+covers the source and every header under ``csrc/``, so an edited source
+rebuilds and an unchanged one is reused.  A library is built at its first
+use; ``build()`` starts every missing one at once (one nvcc process per
+source, run in parallel).  A failed build raises with the compiler's
+output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("ntt", "poseidon")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile every missing library in `names` in parallel; returns the
+    wall seconds of each compile (0.0 for one already built)."""
+    times = {name: 0.0 for name in names if library_path(name).exists()}
+    missing = [name for name in names if name not in times]
+    if missing:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        compiler = nvcc()
+    procs = {}
+    for name in missing:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(BUILD_DIR / f"{name}.log", "w")
+        cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                       time.perf_counter(), tmp, out, log)
+    failed = []
+    for name, (proc, t0, tmp, out, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        times[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        logs = "\n".join(
+            (BUILD_DIR / f"{n}.log").read_text()[-4000:] for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return times
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if missing."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return _libs[name]
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with ptxas register/spill counts) of the last build."""
+    path = BUILD_DIR / f"{name}.log"
+    return path.read_text() if path.exists() else ""

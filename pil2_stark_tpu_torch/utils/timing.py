@@ -1,0 +1,45 @@
+"""Structured per-phase wall-clock timing of a prove.
+
+Counterpart of pil2_stark_tpu/utils/timing.py.  On a CUDA device a phase
+waits for the device at its end, so its time includes the device work it
+queued, and its peak device memory is recorded (``peaks``); each phase is
+also labelled in a torch.profiler trace (``record_function``)."""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+
+class PhaseTimer:
+    def __init__(self, logger=None, device=None):
+        self.timings: dict[str, float] = {}
+        self.peaks: dict[str, int] = {}
+        self.logger = logger
+        self.cuda = device if device is not None and device.type == "cuda" else None
+
+    def sync(self):
+        if self.cuda is not None:
+            torch.cuda.synchronize(self.cuda)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        if self.cuda is not None:
+            torch.cuda.reset_peak_memory_stats(self.cuda)
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function(name):
+                yield
+            self.sync()
+        finally:
+            dt = time.perf_counter() - t0
+            self.timings[name] = self.timings.get(name, 0.0) + dt
+            if self.cuda is not None:
+                peak = torch.cuda.max_memory_allocated(self.cuda)
+                self.peaks[name] = max(self.peaks.get(name, 0), peak)
+            if self.logger:
+                self.logger.debug(f"··· {name}: {dt * 1000:.1f} ms")
+
+    def summary(self) -> dict[str, float]:
+        return dict(sorted(self.timings.items(), key=lambda kv: -kv[1]))

@@ -1,0 +1,93 @@
+"""PyTorch port on the card: each CUDA kernel equals its plain version on
+the card across the shapes its wrapper accepts, and a proof on the card
+equals the proof on the CPU.  Needs an NVIDIA GPU and nvcc; skipped without
+one.  Run on a machine with a card (its Python has no JAX, hence
+--noconftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from pil2_stark_tpu_torch.field import torch_gl
+from pil2_stark_tpu_torch.hash import cuda_poseidon
+from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+
+pytestmark = pytest.mark.cuda
+
+P = 0xFFFFFFFF00000001
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _rand(shape, seed, device):
+    a = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+    corners = np.array([0, 1, P - 1, P - 2], dtype=np.uint64)
+    flat = a.reshape(-1)
+    flat[: min(4, flat.size)] = corners[: min(4, flat.size)]
+    return torch_gl.from_u64(a, device)
+
+
+@pytest.mark.parametrize("bits1,bits2,cols", [(1, 12, 2), (7, 7, 1), (8, 12, 3), (12, 12, 1), (10, 3, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernels_equal_plain(card, bits1, bits2, cols, inverse):
+    bits = bits1 + bits2
+    x = _rand((cols, 1 << bits), bits, card)
+    lt = ntt.level_twiddles(bits, bits1, inverse, card)
+    y = cuda_ntt.level_planar(x, bits1, 1 << bits2, cols, lt, inverse)
+    assert torch.equal(y, cuda_ntt.level_planar_plain(x, bits1, 1 << bits2, cols, lt, inverse))
+    z = cuda_ntt.base_grid(y, bits2, cols, inverse)
+    assert torch.equal(z, cuda_ntt.base_grid_plain(y, bits2, cols, inverse))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bits", [0, 1, 5, 12])
+def test_base_grid_single_pass_equals_plain(card, bits):
+    x = _rand((3 << bits, 1), bits, card)
+    assert torch.equal(cuda_ntt.base_grid(x, bits, 3, False),
+                       cuda_ntt.base_grid_plain(x, bits, 3, False))
+
+
+@pytest.mark.parametrize("batch", [1, 255, 4097])
+def test_poseidon_kernel_equals_plain(card, batch):
+    s = _rand((12, batch), batch, card)
+    assert torch.equal(cuda_poseidon.permute(s), cuda_poseidon.permute_plain(s))
+
+
+def test_ntt_on_card_equals_cpu(card):
+    x = _rand((2, 1 << 14), 3, "cpu")
+    assert torch.equal(ntt.lde_planar(x.to(card), 14, 16).cpu(), ntt.lde_planar(x, 14, 16))
+
+
+def test_fibonacci_proof_on_card_equals_cpu(card):
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import prover, setup
+
+    data = setup.read_setup("fibonacci_6")
+    const_cols, cm_cols, publics = fibonacci.build(data["references"], 64)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
+                             const_cols.buffer, device=dev)
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics), device=dev)
+        out.append((_canon(res["proof"]), res["challenges"]))
+    assert out[0] == out[1]
+
+
+def _canon(o):
+    if isinstance(o, np.ndarray):
+        return [_canon(x) for x in o.tolist()]
+    if isinstance(o, (list, tuple)):
+        return [_canon(x) for x in o]
+    if isinstance(o, dict):
+        return {k: _canon(v) for k, v in o.items()}
+    if isinstance(o, (int, np.integer)):
+        return int(o)
+    return o
