@@ -4,25 +4,35 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. build   — compile every CUDA source of the port (one nvcc per source,
-               all in parallel);
-  2. kernels — run each kernel of the prove path (B2 level_planar, B3
-               base_grid, B4 Poseidon) at the shapes the 2^20 prove gives it,
-               on random values plus near-p corners, and require output equal
-               bit for bit to its plain PyTorch version; time both;
-  3. small   — prove the all-gadgets machine at 2^8 on the card and on the
-               CPU, and require the two proofs to be identical;
-  4. prove   — prove the all-gadgets machine at 2^20 rows (nBitsExt 22, 32
-               queries) on the card through prove(); verify the proof; report
-               cold and warm wall time, the phase breakdown and peak memory.
-               The kernels' launch counters are zeroed just before the cold
-               prove and read just after it.
+  1. build       — compile every CUDA source of the port (one nvcc per
+                   source, all in parallel);
+  2. kernels     — run each kernel of the prove paths (B2 level_planar, B3
+                   base_grid, B4 Poseidon at the shapes the 2^20 prove gives
+                   them; B1 base_rows at the FRI fold and the two bases of
+                   the 2^25 prove) on random values plus near-p corners, and
+                   require output equal bit for bit to its plain PyTorch
+                   version; time both;
+  3. small       — prove the all-gadgets machine at 2^8 on the card and on
+                   the CPU, and require the two proofs to be identical;
+  4. large_ntt   — a 2^25-point transform of 3 columns (the row route on
+                   B1): intt(ntt(x)) == x, ntt equal to the same route with
+                   the plain B1, and 4 outputs equal to a host evaluation of
+                   the polynomials; its time and peak memory;
+  5. prove       — prove the all-gadgets machine at 2^20 rows (nBitsExt 22,
+                   32 queries) on the card through prove(); verify the proof;
+                   report cold and warm wall time, the phase breakdown and
+                   peak memory;
+  6. prove_large — the same for fibonacci at 2^22 rows, nBitsExt 25 (the
+                   row route, setups/fibonacci_22.json).
+In each prove phase the kernels' launch counters are zeroed just before the
+cold prove and read just after it, and every kernel must have launched.
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
 card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -31,6 +41,9 @@ import time
 P = 0xFFFFFFFF00000001
 N_BITS = 20  # the all-gadgets machine at 2^20 rows, blowup 4 (setups/all_20.json)
 N_COLS = 15  # the widest committed section of that machine (stage 1)
+LARGE_SETUP = "fibonacci_22"  # fibonacci at 2^22 rows, blowup 8
+LARGE_BITS = 25  # its extended domain: past the planar ceiling, the row route
+LARGE_COLS = 3  # the widest transform of that prove (Q, 3 columns)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
 # integer multiply-add rate is half the FP32 FMA rate (67e12 FLOP/s / 2
@@ -176,12 +189,42 @@ def phase_kernels(device, n_bits, n_bits_ext, n_cols):
         "pil2_stark_tpu/hash/pallas_poseidon.py:433", err4,
         lambda: cuda_poseidon.permute(state), lambda: cuda_poseidon.permute_plain(state),
         ext_n * POSEIDON_IMAD, 2 * 12 * ext_n * 8, {"batch": ext_n}))
+    rows += _b1_rows(device)
     for r in rows:
         emit({"phase": "kernels", **r})
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     torch.cuda.empty_cache()
+    return rows
+
+
+def _b1_rows(device):
+    """B1 at the shapes of the LARGE_SETUP prove: the first FRI fold (8 rows,
+    3·2^22 lanes, inverse) and the two bases of a 3-column 2^25 transform
+    (2^12 rows × 3·2^13 lanes, 2 rows × 3·2^24 lanes)."""
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_ntt
+
+    rows = []
+    fold_bits = LARGE_BITS - 22
+    for bits, lanes, inverse in ((fold_bits, 3 << 22, True),
+                                 (12, LARGE_COLS << (LARGE_BITS - 12), False),
+                                 (1, LARGE_COLS << (LARGE_BITS - 1), False)):
+        n = 1 << bits
+        x = random_field((n, lanes), 200 + bits, device)
+        err = max_abs_err(cuda_ntt.base_rows(x, bits, inverse),
+                          cuda_ntt.base_rows_plain(x, bits, inverse))
+        row = _kernel_row("base_rows", "pil2_stark_tpu_torch/csrc/ntt.cu",
+                          "pil2_stark_tpu/ops/pallas_ntt.py:519", err,
+                          lambda: cuda_ntt.base_rows(x, bits, inverse),
+                          lambda: cuda_ntt.base_rows_plain(x, bits, inverse),
+                          n * lanes * bits / 2 * IMAD_PER_GL_MUL, 2 * n * lanes * 8,
+                          {"n": n, "lanes": lanes, "inverse": inverse})
+        rows.append(dict(row, path=LARGE_SETUP))
+        del x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -194,7 +237,7 @@ def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": shape}
+            "library_ms": None, "shape": shape, "path": f"all_{N_BITS}"}
 
 
 def _prove_all(n_bits, device, setup=None):
@@ -227,15 +270,84 @@ def phase_small(device):
         raise AssertionError("all 2^8: card and CPU proofs differ or do not verify")
 
 
-def phase_prove(device, n_bits, counters):
+@contextlib.contextmanager
+def plain_b1():
+    """ops/ntt.py's row route with kernel B1 replaced by its plain version."""
+    from pil2_stark_tpu_torch.ops import cuda_ntt
+
+    kernel = cuda_ntt.base_rows
+    cuda_ntt.base_rows = cuda_ntt.base_rows_plain
+    try:
+        yield
+    finally:
+        cuda_ntt.base_rows = kernel
+
+
+def host_eval(x_u64, k: int) -> int:
+    """Σ_i x_i·w_N^(i·k) mod p on the host (numpy, field/gl64.py).  w^(i·k)
+    repeats with period N / gcd(k, N), so the x_i are first summed per
+    residue class of i modulo that period."""
+    import numpy as np
+
+    from pil2_stark_tpu_torch.field import gl64
+
+    n = x_u64.shape[0]
+    period = n // ((k & -k) if k else n)
+    classes = x_u64.reshape(n // period, period)
+    lo = (classes & np.uint64(0xFFFFFFFF)).sum(axis=0, dtype=np.uint64)
+    hi = (classes >> np.uint64(32)).sum(axis=0, dtype=np.uint64)
+    sums = np.array([(int(a) + (int(b) << 32)) % P for a, b in zip(lo, hi)], dtype=np.uint64)
+    z = pow(gl64.w(n.bit_length() - 1), k, P)
+    terms = gl64.mul(sums, gl64.powers(z, period))
+    return sum(int(v) for v in terms) % P
+
+
+def phase_large_ntt(device, bits, n_cols):
     import torch
 
-    from pil2_stark_tpu_torch.models import gadgets
+    from pil2_stark_tpu_torch.field import torch_gl as gl
+    from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+
+    n = 1 << bits
+    x = random_field((n_cols, n), 250, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = cuda_ntt.base_rows.launches
+    y = ntt.ntt(x, bits)
+    torch.cuda.synchronize()
+    launches = cuda_ntt.base_rows.launches - before
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = cuda_ms(lambda: ntt.ntt(x, bits), 3)
+    round_trip = torch.equal(ntt.intt(y, bits), x)
+    with plain_b1():
+        plain_ms = cuda_ms(lambda: ntt.ntt(x, bits), 1)
+        same_as_plain = torch.equal(ntt.ntt(x, bits), y)
+    idx = [0, n // 2, 3 << 10, (0x5A5A5 << 5) % n]
+    x_host = gl.to_u64(x)
+    y_host = gl.to_u64(y[:, idx])
+    spots = all(host_eval(x_host[c], k) == int(y_host[c, j])
+                for c in range(n_cols) for j, k in enumerate(idx))
+    emit({"phase": "large_ntt", "n_bits": bits, "n_cols": n_cols, "round_trip": round_trip,
+          "equals_plain_route": same_as_plain, "spot_checks": spots, "spot_indices": idx,
+          "ms": ms, "plain_route_ms": plain_ms, "b1_launches": launches,
+          "peak_device_bytes": peak})
+    del x, y
+    torch.cuda.empty_cache()
+    if not (round_trip and same_as_plain and spots and launches > 0):
+        raise AssertionError(f"the 2^{bits} transform is wrong or skipped B1")
+
+
+def phase_prove(device, setup_name, counters):
+    """Prove one committed setup on the card, cold then warm; verify."""
+    import torch
+
+    from pil2_stark_tpu_torch.models import fibonacci, gadgets
     from pil2_stark_tpu_torch.stark import prover, setup as stark_setup, verifier
 
-    data = stark_setup.read_setup(f"all_{n_bits}")
+    data = stark_setup.read_setup(setup_name)
+    build = {"all": gadgets.build_all, "fibonacci": fibonacci.build}[data["machine"]]
     t0 = time.perf_counter()
-    const_cols, cm_cols, publics = gadgets.build_all(data["references"], 1 << n_bits)
+    const_cols, cm_cols, publics = build(data["references"], 1 << data["nBits"])
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
     setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
@@ -262,15 +374,21 @@ def phase_prove(device, n_bits, counters):
                          setup["starkInfo"], setup["verifierInfo"])
     t_verify = time.perf_counter() - t0
     ss = data["starkInfo"]["starkStruct"]
-    emit({"phase": "prove", "machine": "all", "n_bits": ss["nBits"],
+    emit({"phase": "prove" if data["machine"] == "all" else "prove_large",
+          "setup": setup_name, "machine": data["machine"], "n_bits": ss["nBits"],
           "n_bits_ext": ss["nBitsExt"], "n_queries": ss["nQueries"],
           "verified": ok, "repeatable": same, "cold_s": cold, "warm_s": warm,
           "witness_build_s": t_build, "load_setup_s": t_setup, "verify_s": t_verify,
           "peak_device_bytes": peak, "phases_warm_s": res_warm["timings"],
           "phases_cold_s": res["timings"], "phases_peak_bytes": res_warm["peakBytes"],
           "launches": launches})
+    del setup, res, res_warm
+    torch.cuda.empty_cache()
     if not (ok and same):
-        raise AssertionError("the 2^20 proof does not verify or is not repeatable")
+        raise AssertionError(f"the {setup_name} proof does not verify or is not repeatable")
+    zero = [k for k, v in launches.items() if v == 0]
+    if zero:
+        raise AssertionError(f"kernels never launched on the {setup_name} prove: {zero}")
     return launches
 
 
@@ -295,23 +413,24 @@ def main():
         return 2
 
     device = torch.device("cuda", 0)
-    counters = [cuda_ntt.level_planar, cuda_ntt.base_grid, cuda_poseidon.permute]
+    counters = [cuda_ntt.base_rows, cuda_ntt.level_planar, cuda_ntt.base_grid,
+                cuda_poseidon.permute]
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels(device, N_BITS, N_BITS + 2, N_COLS)
     phase_small(device)
-    launches = phase_prove(device, N_BITS, counters)
-    zero = [k for k, v in launches.items() if v == 0]
-    if zero:
-        raise AssertionError(f"kernels never launched on the prove path: {zero}")
+    phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
+    launches = {name: phase_prove(device, name, counters)
+                for name in (f"all_{N_BITS}", LARGE_SETUP)}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
-    names = {"level_planar": "level_planar", "base_grid": "base_grid", "poseidon": "permute"}
+    names = {"base_rows": "base_rows", "level_planar": "level_planar",
+             "base_grid": "base_grid", "poseidon": "permute"}
     kernels = []
     for r in rows:
-        row = {k: v for k, v in r.items() if k != "shape"}
-        row["launches"] = launches[names[r["name"]]]
-        kernels.append(row)
+        counter = names[r["name"]]
+        kernels.append(dict(r, launches=launches[r["path"]][counter],
+                            launches_by_path={p: c[counter] for p, c in launches.items()}))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

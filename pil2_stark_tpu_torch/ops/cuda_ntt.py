@@ -1,5 +1,5 @@
-"""Kernels B2 and B3 of the planar four-step NTT (csrc/ntt.cu), each beside
-its plain PyTorch version.
+"""Kernels B1, B2 and B3 of the NTT (csrc/ntt.cu), each beside its plain
+PyTorch version.
 
   * ``level_planar`` replaces pallas_ntt.level_planar (pallas_ntt.py:439):
     step 1 of a four-step level — bit-reverse gather over i1, radix-2 DIT
@@ -7,9 +7,13 @@ its plain PyTorch version.
   * ``base_grid`` replaces pallas_ntt.base_grid (pallas_ntt.py:497): step 2
     — per column batch, bit-reverse gather over i2 and a length-n2 DIT
     along the rows of a (C·n2, n1) array.
+  * ``base_rows`` replaces pallas_ntt.base_ntt_brev (pallas_ntt.py:519): the
+    base of the row-major route — a length-n DIT along axis 0 of an (n, L)
+    array, n = 2^1..2^12, any L.  Bound on the card: bytes (read once,
+    write once); n <= 32 runs in registers, larger n in a shared tile.
 
-Unlike the Pallas kernels, both take natural-order input (the gather is
-fused into the kernels' loads) and both return canonical values.  The
+Unlike the Pallas kernels, all three take natural-order input (the gather
+is fused into the kernels' loads) and return canonical values.  The
 inverse direction runs inverted roots with no 1/n.
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
@@ -101,6 +105,8 @@ def _lib():
         lib.gl_level_planar.restype = ci
         lib.gl_base_grid.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.gl_base_grid.restype = ci
+        lib.gl_base_rows.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, ci, vp]
+        lib.gl_base_rows.restype = ci
         lib._typed = True
     return lib
 
@@ -182,3 +188,36 @@ def base_grid(y, bits2: int, n_cols: int, inverse: bool) -> torch.Tensor:
 
 
 base_grid.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B1
+
+
+def base_rows_plain(x, bits: int, inverse: bool) -> torch.Tensor:
+    """x (n, L) natural order -> (n, L) transformed along axis 0."""
+    rev = torch.as_tensor(bit_reverse_indices(bits), device=x.device)
+    return dit_brev(gl.canon(x[rev]), bits, inverse)
+
+
+def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return base_rows_plain(x, bits, inverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"base_rows: unsupported device {x.device}")
+    if not 1 <= bits <= 12 or x.dim() != 2:
+        raise ValueError(f"base_rows: unsupported shape n=2^{bits}, x {tuple(x.shape)}")
+    lanes = x.shape[1]
+    _check(x, (1 << bits, lanes), "base_rows x")
+    out = torch.empty_like(x)
+    tile = _tile(bits, 1 << (lanes - 1).bit_length())
+    tw = stage_twiddles(bits, inverse, x.device)
+    rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), out.data_ptr(), bits, lanes,
+                             tile.bit_length() - 1, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"gl_base_rows launch failed: CUDA error {rc}")
+    base_rows.launches += 1
+    return out
+
+
+base_rows.launches = 0

@@ -1,20 +1,27 @@
 """NTT / iNTT / low-degree extension over Goldilocks on planar tensors.
 
-Counterpart of pil2_stark_tpu/ops/ntt.py's planar path (``_planar_ntt``
-:294-327, ``lde_planar`` :445).  Data is planar: a (C, N) int64 tensor, one
-column per row, the domain along the contiguous axis.  A transform of
+Counterpart of pil2_stark_tpu/ops/ntt.py: its planar path (``_planar_ntt``
+:294-327, ``lde_planar`` :445) and its row-major path (``_axis0_ntt``
+:225-265, ``_axis0_base`` :187-222).  Data is planar: a (C, N) int64 tensor,
+one column per row, the domain along the contiguous axis.  A transform of
 N = 2^bits points runs the four-step split of ``split_bits`` (one factor
-kept at 2^12, as ``_split_bits`` :169 does):
+kept at 2^12 up to 2^24, halves above, as ``_split_bits`` :169 does):
 
   bits <= 12:       one B3 pass (base_grid with n1 = 1);
-  12 < bits <= 24:  B2 over n1 = 2^(bits-12), then B3 over n2 = 2^12.
+  12 < bits <= 24:  B2 over n1 = 2^(bits-12), then B3 over n2 = 2^12;
+  bits > 24:        the row route: transpose to (N, C), ``axis0_ntt``,
+                    transpose back (as ``_jit_lde_planar`` :416-425 falls
+                    back).
 
-``ntt``/``intt`` are natural order in and out and bit-identical to the
-reference's DFT (roots from the f3g w[] chain); ``intt`` runs the inverse
-network and scales by 1/n.  ``lde_planar`` mirrors fft_p.interpolate:
-iNTT(N) -> coset scale by 7^i (1/n folded in, as ``_lde_parts`` :367-391) ->
-zero-pad -> NTT(extN).  The small FRI group transforms along axis 0 run as
-plain torch ops (``intt_rows``).
+``axis0_ntt`` is the row-major recursion: each level transforms axis 0 of
+an (n1, n2·L) view, multiplies by w_N^(o1·i2), transposes (n1, n2, L) ->
+(n2, n1, L) and transforms the n2 axis; its bases (n <= 2^12) are kernel B1
+(base_rows).  ``ntt``/``intt`` are natural order in and out and
+bit-identical to the reference's DFT (roots from the f3g w[] chain);
+``intt`` runs the inverse network and scales by 1/n.  ``lde_planar``
+mirrors fft_p.interpolate: iNTT(N) -> coset scale by 7^i (1/n folded in,
+as ``_lde_parts`` :367-391) -> zero-pad -> NTT(extN).  The FRI group
+transforms (``intt_rows``) run the row route too.
 """
 from __future__ import annotations
 
@@ -26,16 +33,16 @@ from ..field import torch_gl as gl
 from . import cuda_ntt
 
 BASE_BITS = 12
-MAX_BITS = 2 * BASE_BITS
+MAX_BITS = 2 * BASE_BITS  # the planar route's ceiling; larger transforms take rows
 
 
 def split_bits(bits: int) -> int:
-    """log2 of the B2 factor n1 (0: a single B3 pass)."""
+    """log2 of the first four-step factor n1 (0: a single base pass)."""
     if bits <= BASE_BITS:
         return 0
-    if bits <= MAX_BITS:
+    if bits <= 2 * BASE_BITS:
         return bits - BASE_BITS
-    raise ValueError(f"NTT of 2^{bits} points: at most 2^{MAX_BITS} supported")
+    return bits // 2
 
 
 _LEVEL_TW: dict = {}
@@ -66,6 +73,8 @@ def planar_ntt(xp: torch.Tensor, bits: int, inverse: bool) -> torch.Tensor:
     n = 1 << bits
     if c == 0:
         return xp
+    if bits > MAX_BITS:
+        return axis0_ntt(xp.T, bits, inverse).T.contiguous()
     xp = xp.contiguous()
     bits1 = split_bits(bits)
     if bits1 == 0:
@@ -105,12 +114,24 @@ def lde_planar(xp: torch.Tensor, bits: int, ext_bits: int, shift: int = 7) -> to
     return planar_ntt(padded, ext_bits, False)
 
 
+def axis0_ntt(x: torch.Tensor, bits: int, inverse: bool) -> torch.Tensor:
+    """Transform along axis 0 of a (2^bits, L) tensor, natural order in and
+    out, no 1/n scale."""
+    if bits <= BASE_BITS:
+        return cuda_ntt.base_rows(x.contiguous(), bits, inverse)
+    bits1 = split_bits(bits)
+    n1, n2 = 1 << bits1, 1 << (bits - bits1)
+    b = x.shape[1]
+    y = axis0_ntt(x.reshape(n1, n2 * b), bits1, inverse).reshape(n1, n2, b)
+    y = gl.mul(y, level_twiddles(bits, bits1, inverse, x.device)[:, :, None])
+    y = y.permute(1, 0, 2).reshape(n2, n1 * b)
+    return axis0_ntt(y, bits - bits1, inverse).reshape(n1 * n2, b)
+
+
 def intt_rows(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Plain-torch iNTT along axis 0 of an (n, L) tensor, with 1/n (the FRI
-    group transforms, n = 2^bits small)."""
-    rev = torch.as_tensor(cuda_ntt.bit_reverse_indices(bits), device=x.device)
-    y = cuda_ntt.dit_brev(x[rev], bits, True)
-    return gl.mul(y, pow(1 << bits, gl64.P_INT - 2, gl64.P_INT))
+    """iNTT along axis 0 of an (n, L) tensor, with 1/n (the FRI group
+    transforms)."""
+    return gl.mul(axis0_ntt(x, bits, True), pow(1 << bits, gl64.P_INT - 2, gl64.P_INT))
 
 
 # ---------------------------------------------------------------------------

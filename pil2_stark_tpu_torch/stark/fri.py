@@ -5,7 +5,7 @@ Counterpart of pil2_stark_tpu/stark/fri.py (planar device fold
 ``_transposed_device_planar`` :360; ``proof_queries``/``_gather_jobs``
 :155-211; ``verify`` :213), itself pil2-stark-js src/stark/fri.js.  A
 fold groups the (3, n) polynomial by the next step size, runs the
-per-group iNTT (a small axis-0 transform, plain torch), de-scales by
+per-group iNTT (a small axis-0 transform, kernel B1 on the card), de-scales by
 shiftInv·w^-g powers and evaluates at the challenge by Horner; every
 non-final step re-Merkelizes the transposed groups 3-wide on the device.
 """

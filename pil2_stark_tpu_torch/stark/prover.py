@@ -7,8 +7,9 @@ fixpoint on the host → evaluate the im-pols on the device → upload, LDE and
 Merkelize on the device → absorb the root → squeeze challenges; then the Q
 split, the DEEP evals, xDivXSubXi, the FRI polynomial, the FRI folds and
 one batched query gather.  The transcript and the control flow stay on the
-host.  The LDEs and the Q split run on kernels B2/B3 (ops/cuda_ntt.py),
-every Merkle tree on kernel B4 (hash/cuda_poseidon.py).
+host.  The LDEs and the Q split run on kernels B2/B3 (ops/cuda_ntt.py) up
+to 2^24 points and on the row route's B1 above, the FRI folds on B1, every
+Merkle tree on kernel B4 (hash/cuda_poseidon.py).
 """
 from __future__ import annotations
 

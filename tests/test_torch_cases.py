@@ -2,6 +2,7 @@
 tests/test_device_prover.py proved by the JAX package (backend="numpy") and
 by the port on the CPU, from the same committed setup and columns."""
 import copy
+import functools
 
 from pil2_stark_tpu.compiler import pil1_parser
 from pil2_stark_tpu.models import fibonacci as jfib, gadgets as jgad
@@ -29,9 +30,10 @@ def canon(o):
     return o
 
 
-def prove_both(name):
-    """Returns (jax setup, jax result, port setup, port result)."""
-    machine, n_bits, ss = CASES[name]
+@functools.lru_cache(maxsize=None)
+def case_inputs(name):
+    """(pil, const columns, stage-1 columns, publics) of one case."""
+    machine, n_bits, _ = CASES[name]
     n = 1 << n_bits
     if machine == "all":
         pil = pil1_parser.compile_pil_source(jgad.all_source(n_bits))
@@ -50,17 +52,27 @@ def prove_both(name):
         jgad.execute_connection(n, cm_cols.Connection)
     jfib.build_constants(n, const_cols.Fibonacci)
     out = jfib.execute(n, cm_cols.Fibonacci, [1, 2])
-    publics = [1, 2, out]
+    return pil, const_cols, cm_cols, [1, 2, out]
 
-    js = jsetup.stark_setup(const_cols.buffer, pil, copy.deepcopy(ss))
-    jres = jprover.prove(js["starkInfo"], js["expressionsInfo"], const_cols.buffer,
-                         js["constTree"], (cm_cols.buffer, publics), backend="numpy")
+
+def prove_port(name):
+    """(port setup, port result) of one case, proved on the CPU."""
+    _, const_cols, cm_cols, publics = case_inputs(name)
     data = tsetup.read_setup(name)
     ts = tsetup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
                            const_cols.buffer, device="cpu")
     tres = tprover.prove(ts["starkInfo"], ts["expressionsInfo"], const_cols.buffer,
                          ts["constTree"], (cm_cols.buffer, publics), device="cpu")
-    return js, jres, ts, tres
+    return ts, tres
+
+
+def prove_both(name):
+    """Returns (jax setup, jax result, port setup, port result)."""
+    pil, const_cols, cm_cols, publics = case_inputs(name)
+    js = jsetup.stark_setup(const_cols.buffer, pil, copy.deepcopy(CASES[name][2]))
+    jres = jprover.prove(js["starkInfo"], js["expressionsInfo"], const_cols.buffer,
+                         js["constTree"], (cm_cols.buffer, publics), backend="numpy")
+    return (js, jres) + prove_port(name)
 
 
 def test_cases_use_the_committed_setups():

@@ -54,6 +54,39 @@ def test_base_grid_single_pass_equals_plain(card, bits):
                        cuda_ntt.base_grid_plain(x, bits, 3, False))
 
 
+@pytest.mark.parametrize("bits", [1, 3, 7, 12])
+@pytest.mark.parametrize("lanes", ["one", "pow2", "odd"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_base_rows_equals_plain(card, bits, lanes, inverse):
+    """B1 in both regimes (registers up to 2^5 rows, a shared tile above)
+    with one lane, 3·2^k lanes (the FRI folds) and an odd count that leaves
+    a ragged tile."""
+    n_lanes = {"one": 1, "pow2": 3 << 9, "odd": 1001}[lanes]
+    x = _rand((1 << bits, n_lanes), bits + n_lanes, card)
+    assert torch.equal(cuda_ntt.base_rows(x, bits, inverse),
+                       cuda_ntt.base_rows_plain(x, bits, inverse))
+    torch.cuda.synchronize()
+
+
+def test_intt_rows_launches_b1(card):
+    x = _rand((8, 3 << 10), 5, card)
+    before = cuda_ntt.base_rows.launches
+    got = ntt.intt_rows(x, 3)
+    assert cuda_ntt.base_rows.launches == before + 1
+    assert torch.equal(got.cpu(), ntt.intt_rows(x.cpu(), 3))
+
+
+def test_ntt_round_trip_at_2_25(card):
+    """Past the planar ceiling: the row route on B1, and back."""
+    x = _rand((2, 1 << 25), 25, card)
+    before = cuda_ntt.base_rows.launches
+    y = ntt.ntt(x, 25)
+    assert cuda_ntt.base_rows.launches == before + 3  # bases 2^12, 2^1, 2^12
+    assert torch.equal(ntt.intt(y, 25), x)
+    del y
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("batch", [1, 255, 4097])
 def test_poseidon_kernel_equals_plain(card, batch):
     s = _rand((12, batch), batch, card)

@@ -73,3 +73,5 @@ def test_cuda_wrappers_refuse_other_devices():
         cuda_poseidon.permute(x)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_ntt.base_grid(x.reshape(48, 1), 2, 12, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_ntt.base_rows(x.reshape(4, 12), 2, False)

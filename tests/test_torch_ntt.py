@@ -87,6 +87,8 @@ def test_plain_b2_b3_match_pallas_interpret(inverse):
 
 
 def test_split_bits_keeps_a_2_12_factor():
+    """Up to 2^24 one factor stays at 2^12; above, the JAX rule halves
+    (2^25 splits 12 + 13), so transforms past the planar ceiling run."""
     assert [ntt.split_bits(b) for b in (8, 12, 13, 20, 22, 24)] == [0, 0, 1, 8, 10, 12]
-    with pytest.raises(ValueError):
-        ntt.split_bits(25)
+    assert [ntt.split_bits(b) for b in range(13, 31)] == [jntt._split_bits(b) for b in range(13, 31)]
+    assert ntt.split_bits(25) == 12

@@ -1,13 +1,15 @@
 """PyTorch port, end to end on the CPU: the fibonacci machine at 2^6, with
 the normal and the split linear hash, gives proofs equal to the JAX
 package's backend="numpy" proofs, the same challenges, and both verifiers
-accept them."""
+accept them — on the planar route, and on the row route the port takes
+above 2^24 points (its planar ceiling lowered below 2^6)."""
 import pytest
 
 from pil2_stark_tpu.stark import verifier as jverifier
+from pil2_stark_tpu_torch.ops import ntt
 from pil2_stark_tpu_torch.stark import verifier as tverifier
 
-from test_torch_cases import canon, prove_both
+from test_torch_cases import canon, prove_both, prove_port
 
 
 @pytest.fixture(scope="module", params=["fibonacci_6", "fibonacci_6_split"])
@@ -30,5 +32,18 @@ def test_both_verifiers_accept(proofs):
     js, _, ts, tres = proofs
     assert tverifier.verify(tres["proof"], tres["publics"], ts["constRoot"],
                             ts["starkInfo"], ts["verifierInfo"])
-    assert jverifier.verify(tres["proof"], tres["publics"], js["constRoot"],
-                            js["starkInfo"], js["verifierInfo"])
+
+
+def test_row_route_proof_equals_jax(proofs, monkeypatch, request):
+    """Equal to the JAX proof, which the JAX verifier accepts
+    (test_both_verifiers_accept); the port's verifier accepts it too."""
+    _, jres, _, _ = proofs
+    monkeypatch.setattr(ntt, "MAX_BITS", 5)
+    calls = []
+    real_axis0 = ntt.axis0_ntt
+    monkeypatch.setattr(ntt, "axis0_ntt", lambda x, b, inv: calls.append(b) or real_axis0(x, b, inv))
+    ts, tres = prove_port(request.node.callspec.params["proofs"])
+    assert {6, 9} <= set(calls)  # the LDEs, the Q split and the evals took rows
+    assert canon(tres["proof"]) == canon(jres["proof"])
+    assert tverifier.verify(tres["proof"], tres["publics"], ts["constRoot"],
+                            ts["starkInfo"], ts["verifierInfo"])

@@ -26,6 +26,8 @@ CASES = {
     "all_8": ("all", 8, jgad.stark_struct(8, 10, n_queries=8)),
     "fibonacci_6": ("fibonacci", 6, jfib.STARK_STRUCT),
     "fibonacci_6_split": ("fibonacci", 6, dict(copy.deepcopy(jfib.STARK_STRUCT), splitLinearHash=True)),
+    # blowup 8: the 2^25-point extended domain of the row-route prove
+    "fibonacci_22": ("fibonacci", 22, jgad.stark_struct(22, 25, n_queries=32)),
 }
 
 
