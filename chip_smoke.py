@@ -6,10 +6,11 @@
 Phases, each printing one JSON line:
   1. build       — compile every CUDA source of the port (one nvcc per
                    source, all in parallel);
-  2. kernels     — run each kernel of the prove paths (B2 level_planar, B3
-                   base_grid, B4 Poseidon at the shapes the 2^20 prove gives
-                   them; B1 base_rows at the FRI fold and the two bases of
-                   the 2^25 prove) on random values plus near-p corners, and
+  2. kernels     — run each kernel at the shapes each prove path gives it
+                   (B2 level_planar and B3 base_grid at the widest planar
+                   transforms, B4 Poseidon at the leaf batch of each tree,
+                   B1 base_rows at the FRI fold and the two bases of the
+                   2^25 prove) on random values plus near-p corners, and
                    require output equal bit for bit to its plain PyTorch
                    version; time both;
   3. small       — prove the all-gadgets machine at 2^8 on the card and on
@@ -42,8 +43,9 @@ P = 0xFFFFFFFF00000001
 N_BITS = 20  # the all-gadgets machine at 2^20 rows, blowup 4 (setups/all_20.json)
 N_COLS = 15  # the widest committed section of that machine (stage 1)
 LARGE_SETUP = "fibonacci_22"  # fibonacci at 2^22 rows, blowup 8
+LARGE_N_BITS = 22
 LARGE_BITS = 25  # its extended domain: past the planar ceiling, the row route
-LARGE_COLS = 3  # the widest transform of that prove (Q, 3 columns)
+LARGE_COLS = 3  # the widest transform of that prove (Q, and the evals' iNTT)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
 # integer multiply-add rate is half the FP32 FMA rate (67e12 FLOP/s / 2
@@ -129,74 +131,95 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def phase_kernels(device, n_bits, n_bits_ext, n_cols):
-    """Each kernel against its plain version at the 2^ext prove shapes."""
+def phase_kernels(device):
+    """Each kernel against its plain version at the shapes of each prove
+    path it launches on."""
     import torch
 
-    from pil2_stark_tpu_torch.hash import cuda_poseidon
-    from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
-
+    all_path = f"all_{N_BITS}"
     rows = []
-    ext_n = 1 << n_bits_ext
-    # B2 and B3 at the extended-domain LDE shape, both directions of the
-    # base-domain transform too
-    for bits, inverse in ((n_bits_ext, False), (n_bits, True)):
-        n = 1 << bits
-        bits1 = ntt.split_bits(bits)
-        bits2 = bits - bits1
-        n1, n2 = 1 << bits1, 1 << bits2
-        x = random_field((n_cols, n), 100 + bits, device)
-        lt = ntt.level_twiddles(bits, bits1, inverse, device)
-        y_k = cuda_ntt.level_planar(x, bits1, n2, n_cols, lt, inverse)
-        y_p = cuda_ntt.level_planar_plain(x, bits1, n2, n_cols, lt, inverse)
-        err2 = max_abs_err(y_k, y_p)
-        z_k = cuda_ntt.base_grid(y_k, bits2, n_cols, inverse)
-        z_p = cuda_ntt.base_grid_plain(y_k, bits2, n_cols, inverse)
-        err3 = max_abs_err(z_k, z_p)
-        if bits != n_bits_ext:
-            # the base-domain shape is checked, the ext shape is timed
-            if err2 or err3:
-                raise AssertionError(f"NTT kernels disagree at 2^{bits}: {err2} {err3}")
-            continue
-        del y_p, z_p
-        muls2 = n_cols * n * (bits1 / 2 + 1)
-        bytes2 = 2 * n_cols * n * 8 + n1 * n2 * 8
-        muls3 = n_cols * n * bits2 / 2
-        bytes3 = 2 * n_cols * n * 8
-        for name, src, repl, err, k_fn, p_fn, muls, nbytes in (
-            ("level_planar", "pil2_stark_tpu_torch/csrc/ntt.cu",
-             "pil2_stark_tpu/ops/pallas_ntt.py:439", err2,
-             lambda: cuda_ntt.level_planar(x, bits1, n2, n_cols, lt, inverse),
-             lambda: cuda_ntt.level_planar_plain(x, bits1, n2, n_cols, lt, inverse),
-             muls2, bytes2),
-            ("base_grid", "pil2_stark_tpu_torch/csrc/ntt.cu",
-             "pil2_stark_tpu/ops/pallas_ntt.py:497", err3,
-             lambda: cuda_ntt.base_grid(y_k, bits2, n_cols, inverse),
-             lambda: cuda_ntt.base_grid_plain(y_k, bits2, n_cols, inverse),
-             muls3, bytes3),
-        ):
-            rows.append(_kernel_row(name, src, repl, err, k_fn, p_fn,
-                                    muls * IMAD_PER_GL_MUL, nbytes,
-                                    {"n_cols": n_cols, "n": n, "n1": n1, "n2": n2}))
-    # B4 at the leaf-sponge batch of an extended-domain tree
-    state = random_field((12, ext_n), 7, device)
-    out_k = cuda_poseidon.permute(state)
-    out_p = cuda_poseidon.permute_plain(state)
-    err4 = max_abs_err(out_k, out_p)
-    del out_p
-    rows.append(_kernel_row(
-        "poseidon", "pil2_stark_tpu_torch/csrc/poseidon.cu",
-        "pil2_stark_tpu/hash/pallas_poseidon.py:433", err4,
-        lambda: cuda_poseidon.permute(state), lambda: cuda_poseidon.permute_plain(state),
-        ext_n * POSEIDON_IMAD, 2 * 12 * ext_n * 8, {"batch": ext_n}))
+    # all-gadgets: B2/B3 at its widest LDE (15 columns), the base-domain
+    # iNTT and the extended-domain NTT; B4 at the leaf batch of its trees
+    rows += _ntt_rows(device, N_BITS, N_COLS, True, all_path)
+    rows += _ntt_rows(device, N_BITS + 2, N_COLS, False, all_path)
+    rows.append(_poseidon_row(device, 1 << (N_BITS + 2), all_path))
+    # fibonacci 2^25: B2/B3 at its widest base-domain iNTT (the evals' 3
+    # columns; its extended-domain transforms take the row route), B4 at
+    # 2^25 leaves, B1 at the folds and the row route's bases
+    rows += _ntt_rows(device, LARGE_N_BITS, LARGE_COLS, True, LARGE_SETUP)
+    rows.append(_poseidon_row(device, 1 << LARGE_BITS, LARGE_SETUP))
     rows += _b1_rows(device)
     for r in rows:
         emit({"phase": "kernels", **r})
-    bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
+    bad = [(r["name"], r["path"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     torch.cuda.empty_cache()
     return rows
+
+
+def _ntt_rows(device, bits, n_cols, inverse, path):
+    """B2 (level_planar) and B3 (base_grid) at one planar transform of
+    n_cols × 2^bits points, as ops/ntt.py::planar_ntt splits it."""
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+
+    n = 1 << bits
+    bits1 = ntt.split_bits(bits)
+    bits2 = bits - bits1
+    n1, n2 = 1 << bits1, 1 << bits2
+    x = random_field((n_cols, n), 100 + bits + n_cols, device)
+    lt = ntt.level_twiddles(bits, bits1, inverse, device)
+    y_k = cuda_ntt.level_planar(x, bits1, n2, n_cols, lt, inverse)
+    err2 = max_abs_err(y_k, cuda_ntt.level_planar_plain(x, bits1, n2, n_cols, lt, inverse))
+    err3 = max_abs_err(cuda_ntt.base_grid(y_k, bits2, n_cols, inverse),
+                       cuda_ntt.base_grid_plain(y_k, bits2, n_cols, inverse))
+    muls2 = n_cols * n * (bits1 / 2 + 1)
+    bytes2 = 2 * n_cols * n * 8 + n1 * n2 * 8
+    muls3 = n_cols * n * bits2 / 2
+    bytes3 = 2 * n_cols * n * 8
+    shape = {"n_cols": n_cols, "n": n, "n1": n1, "n2": n2, "inverse": inverse}
+    rows = [
+        _kernel_row("level_planar", "pil2_stark_tpu_torch/csrc/ntt.cu",
+                    "pil2_stark_tpu/ops/pallas_ntt.py:439", err2,
+                    lambda: cuda_ntt.level_planar(x, bits1, n2, n_cols, lt, inverse),
+                    lambda: cuda_ntt.level_planar_plain(x, bits1, n2, n_cols, lt, inverse),
+                    muls2 * IMAD_PER_GL_MUL, bytes2, shape, path),
+        _kernel_row("base_grid", "pil2_stark_tpu_torch/csrc/ntt.cu",
+                    "pil2_stark_tpu/ops/pallas_ntt.py:497", err3,
+                    lambda: cuda_ntt.base_grid(y_k, bits2, n_cols, inverse),
+                    lambda: cuda_ntt.base_grid_plain(y_k, bits2, n_cols, inverse),
+                    muls3 * IMAD_PER_GL_MUL, bytes3, shape, path),
+    ]
+    del x, y_k
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _poseidon_row(device, batch, path):
+    """B4 at the leaf-sponge batch of an extended-domain tree."""
+    import torch
+
+    from pil2_stark_tpu_torch.hash import cuda_poseidon
+
+    def plain(s):
+        # in slices of 2^23 states: the plain version's int64 temporaries
+        # over all 2^25 states exceed the card's 80 GB
+        step = 1 << 23
+        return torch.cat([cuda_poseidon.permute_plain(s[:, i:i + step])
+                          for i in range(0, s.shape[1], step)], dim=1)
+
+    state = random_field((12, batch), 7, device)
+    err = max_abs_err(cuda_poseidon.permute(state), plain(state))
+    row = _kernel_row(
+        "poseidon", "pil2_stark_tpu_torch/csrc/poseidon.cu",
+        "pil2_stark_tpu/hash/pallas_poseidon.py:433", err,
+        lambda: cuda_poseidon.permute(state), lambda: plain(state),
+        batch * POSEIDON_IMAD, 2 * 12 * batch * 8, {"batch": batch}, path)
+    del state
+    torch.cuda.empty_cache()
+    return row
 
 
 def _b1_rows(device):
@@ -221,14 +244,14 @@ def _b1_rows(device):
                           lambda: cuda_ntt.base_rows(x, bits, inverse),
                           lambda: cuda_ntt.base_rows_plain(x, bits, inverse),
                           n * lanes * bits / 2 * IMAD_PER_GL_MUL, 2 * n * lanes * 8,
-                          {"n": n, "lanes": lanes, "inverse": inverse})
-        rows.append(dict(row, path=LARGE_SETUP))
+                          {"n": n, "lanes": lanes, "inverse": inverse}, LARGE_SETUP)
+        rows.append(row)
         del x
         torch.cuda.empty_cache()
     return rows
 
 
-def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape):
+def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape, path):
     ms = cuda_ms(k_fn, 20)
     plain_ms = cuda_ms(p_fn, 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -237,7 +260,7 @@ def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": shape, "path": f"all_{N_BITS}"}
+            "library_ms": None, "shape": shape, "path": path}
 
 
 def _prove_all(n_bits, device, setup=None):
@@ -417,7 +440,7 @@ def main():
                 cuda_poseidon.permute]
     t_start = time.perf_counter()
     phase_build()
-    rows = phase_kernels(device, N_BITS, N_BITS + 2, N_COLS)
+    rows = phase_kernels(device)
     phase_small(device)
     phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
     launches = {name: phase_prove(device, name, counters)
