@@ -13,17 +13,25 @@ Phases, each printing one JSON line:
                    2^25 prove) on random values plus near-p corners, and
                    require output equal bit for bit to its plain PyTorch
                    version; time both;
-  3. small       — prove the all-gadgets machine at 2^8 on the card and on
+  3. tools       — the Poseidon experiment tools: kernel X2 (every variant
+                   of tools/exp_poseidon, at its own 2^16 states with
+                   blocks 512 and 2048) and X1 (tools/exp_stream, at 2^14
+                   and 2^20 states) equal bit for bit to their plain
+                   versions; every variant that computes Poseidon, and X1,
+                   equal to B4 at the prove's leaf batches of 2^22 and
+                   2^25 states and timed beside it; then the two tools'
+                   entry points on the card, with X1/X2 launches counted;
+  4. small       — prove the all-gadgets machine at 2^8 on the card and on
                    the CPU, and require the two proofs to be identical;
-  4. large_ntt   — a 2^25-point transform of 3 columns (the row route on
+  5. large_ntt   — a 2^25-point transform of 3 columns (the row route on
                    B1): intt(ntt(x)) == x, ntt equal to the same route with
                    the plain B1, and 4 outputs equal to a host evaluation of
                    the polynomials; its time and peak memory;
-  5. prove       — prove the all-gadgets machine at 2^20 rows (nBitsExt 22,
+  6. prove       — prove the all-gadgets machine at 2^20 rows (nBitsExt 22,
                    32 queries) on the card through prove(); verify the proof;
                    report cold and warm wall time, the phase breakdown and
                    peak memory;
-  6. prove_large — the same for fibonacci at 2^22 rows, nBitsExt 25 (the
+  7. prove_large — the same for fibonacci at 2^22 rows, nBitsExt 25 (the
                    row route, setups/fibonacci_22.json).
 In each prove phase the kernels' launch counters are zeroed just before the
 cold prove and read just after it, and every kernel must have launched.
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +65,14 @@ IMAD_PER_GL_MUL = 8
 # Poseidon: 1,122 GL multiplies per permutation plus 7 products by the
 # small MDS matrix, each 144 entries × 2 halves multiply-adds.
 POSEIDON_IMAD = 1122 * IMAD_PER_GL_MUL + 7 * 144 * 2
+# the Poseidon experiment tools (tools/exp_poseidon.py, tools/exp_stream.py)
+X2_VARIANTS = ("packed", "packed-nosq", "packed-lazy", "packed-dual", "packed-lazy-dual",
+               "packed-p4x", "packed-psl", "nomxu", "packed-nops", "packed-nofs")
+TOOL_BATCH = 1 << 16  # run_variant's and run_sustained's batch
+TOOL_BLOCKS = (512, 2048)  # run_variant's and run_sustained's block
+X1_BITS = (14, 20)  # exp_stream.main's check size and its largest timed size
+X2_SRC = "pil2_stark_tpu_torch/csrc/poseidon_variants.cu"
+X1_SRC = "pil2_stark_tpu_torch/csrc/poseidon_stream.cu"
 CORNERS = [0, 1, 2, P - 1, P - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
            (1 << 63) - 1, 1 << 63, P - (1 << 32), P - (1 << 32) - 1]
 
@@ -118,15 +135,37 @@ def max_abs_err(a, b) -> float:
     return float(max(abs(int(x[i]) - int(y[i])) for i in bad[:100000]))
 
 
+def ptxas_summary(log: str) -> list:
+    """[kernel, registers, spill store bytes, spill load bytes] for each
+    entry function in nvcc's -Xptxas -v output."""
+    out, name, spill = [], None, [0, 0]
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            name, spill = m.group(1), [0, 0]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            spill = [int(m.group(1)), int(m.group(2))]
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            t = re.search(r"variant_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d)E", name)
+            label = (f"variant_kernel<sq={t[1]},lazy={t[2]},probe={t[3]},ns={t[4]}>"
+                     if t else name)
+            out.append([label, int(m.group(1)), *spill])
+            name = None
+    return out
+
+
+def exact_err(a, b) -> float:
+    """max_abs_err, with the equal case decided on the card."""
+    import torch
+
+    return 0.0 if torch.equal(a, b) else max_abs_err(a, b)
+
+
 def phase_build():
     from pil2_stark_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
     times = cuda_build.build()
-    ptxas = {}
-    for name in cuda_build.SOURCES:
-        ptxas[name] = [ln.strip() for ln in cuda_build.build_log(name).splitlines()
-                       if "registers" in ln or "spill" in ln][:8]
+    ptxas = {name: ptxas_summary(cuda_build.build_log(name)) for name in cuda_build.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": times,
           "ptxas": ptxas})
 
@@ -251,9 +290,11 @@ def _b1_rows(device):
     return rows
 
 
-def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape, path):
-    ms = cuda_ms(k_fn, 20)
-    plain_ms = cuda_ms(p_fn, 1)
+def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape, path,
+                plain_ms=None, reps=20):
+    ms = cuda_ms(k_fn, reps)
+    if plain_ms is None:
+        plain_ms = cuda_ms(p_fn, 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = imads / IMAD_PER_S * 1e3
     return {"name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -261,6 +302,114 @@ def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape, path):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "shape": shape, "path": path}
+
+
+def variant_imads(variant: str) -> int:
+    """32-bit multiply-adds of one permutation under an X2 variant: the
+    work it keeps.  A probe drops the multiplies it skips (nofs keeps the
+    S-box before the last matrix); a dedicated squaring costs three of a
+    multiply's four 32x32 partial products."""
+    from pil2_stark_tpu_torch.tools import exp_poseidon
+
+    v = exp_poseidon.parse(variant)
+    sboxes = (12 if v.probe == "nofs" else 8 * 12) + (0 if v.probe == "nops" else 22)
+    mat_muls = 0 if v.probe == "nomxu" else 144 + 22 * 23
+    mds = 0 if v.probe == "nomxu" else 7 * 144 * 2
+    squares = 2 * sboxes if v.sq else 0
+    return (4 * sboxes + mat_muls) * IMAD_PER_GL_MUL - 2 * squares + mds
+
+
+def phase_tools(device, kernel_rows):
+    """X2 and X1 against their plain versions at the tools' shapes and
+    against B4 at the prove's leaf batches; then the tools' entry points,
+    whose launches are counted."""
+    import torch
+
+    from pil2_stark_tpu_torch.hash import cuda_poseidon
+    from pil2_stark_tpu_torch.tools import exp_poseidon, exp_stream
+
+    t_phase = time.perf_counter()
+    x2 = ("poseidon_variant", X2_SRC, "tools/exp_poseidon.py:431", "tools/exp_poseidon")
+    x1 = ("poseidon_stream", X1_SRC, "tools/exp_stream.py:108", "tools/exp_stream")
+    rows = []
+
+    def row(kernel, err, k_fn, p_fn, imads, n, shape, **kw):
+        name, src, repl, path = kernel
+        rows.append(_kernel_row(name, src, repl, err, k_fn, p_fn, n * imads, 2 * 12 * n * 8,
+                                shape, path, **kw))
+        return rows[-1]
+
+    x = random_field((12, TOOL_BATCH), 11, device)
+    for variant in X2_VARIANTS:
+        want = exp_poseidon.permute_variant_plain(x, variant)
+        plain_ms = cuda_ms(lambda: exp_poseidon.permute_variant_plain(x, variant), 1)
+        for block in TOOL_BLOCKS:
+            fn = exp_poseidon.build(variant, TOOL_BATCH // block, block)
+            row(x2, exact_err(fn(x), want), lambda: fn(x), None, variant_imads(variant),
+                TOOL_BATCH, {"variant": variant, "batch": TOOL_BATCH, "block": block},
+                plain_ms=plain_ms)
+    for bits in X1_BITS:
+        n = 1 << bits
+        x = random_field((12, n), 20 + bits, device)
+        fn = exp_stream.build_stream(n // exp_stream.BLK)
+        row(x1, exact_err(fn(x), cuda_poseidon.permute_plain(x)), lambda: fn(x),
+            lambda: cuda_poseidon.permute_plain(x), POSEIDON_IMAD, n, {"batch": n})
+    del x
+    torch.cuda.empty_cache()
+
+    # the prove's leaf batches, on B4's row inputs: X1 and every variant that
+    # computes Poseidon against B4's output.  Their plain version is the
+    # permutation itself, timed on these inputs by B4's row.
+    for b4 in [r for r in kernel_rows if r["name"] == "poseidon"]:
+        n = b4["shape"]["batch"]
+        x = random_field((12, n), 7, device)
+        want = cuda_poseidon.permute(x)
+        reps = 20 if n <= 1 << 22 else 5
+        extra = {"plain_ms": b4["plain_ms"], "reps": reps}
+        fn = exp_stream.build_stream(n // exp_stream.BLK)
+        r = row(x1, exact_err(fn(x), want), lambda: fn(x), None, POSEIDON_IMAD, n,
+                {"batch": n}, **extra)
+        r.update(b4_ms=b4["ms"], against="B4")
+        for variant in X2_VARIANTS:
+            if exp_poseidon.parse(variant).probe is not None:
+                continue
+            fn = exp_poseidon.build(variant, n // 2048, 2048)
+            r = row(x2, exact_err(fn(x), want), lambda: fn(x), None, variant_imads(variant),
+                    n, {"variant": variant, "batch": n, "block": 2048}, **extra)
+            r.update(b4_ms=b4["ms"], against="B4")
+        del x, want
+        torch.cuda.empty_cache()
+    for r in rows:
+        emit({"phase": "tools", **r})
+    bad = [(r["name"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"tool kernels disagree with their plain versions or B4: {bad}")
+
+    # the tools' entry points, counted
+    exp_poseidon.permute_variant.launches = 0
+    exp_stream.permute_stream.launches = 0
+    t0 = time.perf_counter()
+    runs = exp_poseidon.main(list(X2_VARIANTS), device=device)
+    sustained = [exp_poseidon.run_sustained(v, device=device) for v in X2_VARIANTS]
+    stream = exp_stream.main(device=device)
+    launches = {x2[3]: {"permute_variant": exp_poseidon.permute_variant.launches},
+                x1[3]: {"permute_stream": exp_stream.permute_stream.launches}}
+    per_variant = {r["variant"]: r["launches"] for r in runs}
+    for r in sustained:
+        per_variant[r["variant"]] += r["launches"]
+    emit({"phase": "tools_main", "seconds": time.perf_counter() - t0,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "exp_poseidon": runs, "sustained": sustained, "exp_stream": stream,
+          "launches": launches, "launches_by_variant": per_variant})
+    torch.cuda.empty_cache()
+    if not (all(r["ok"] for r in runs) and stream["ok"]):
+        raise AssertionError("a tool's own check failed on the card")
+    if min(per_variant.values()) == 0 or exp_stream.permute_stream.launches == 0:
+        raise AssertionError(f"a tool kernel never launched: {per_variant}, {launches}")
+    for r in rows:
+        if r["name"] == "poseidon_variant":
+            r["launches_variant"] = per_variant[r["shape"]["variant"]]
+    return rows, launches
 
 
 def _prove_all(n_bits, device, setup=None):
@@ -441,19 +590,22 @@ def main():
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels(device)
+    tool_rows, launches = phase_tools(device, rows)
     phase_small(device)
     phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
-    launches = {name: phase_prove(device, name, counters)
-                for name in (f"all_{N_BITS}", LARGE_SETUP)}
+    launches.update({name: phase_prove(device, name, counters)
+                     for name in (f"all_{N_BITS}", LARGE_SETUP)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     names = {"base_rows": "base_rows", "level_planar": "level_planar",
-             "base_grid": "base_grid", "poseidon": "permute"}
+             "base_grid": "base_grid", "poseidon": "permute",
+             "poseidon_variant": "permute_variant", "poseidon_stream": "permute_stream"}
     kernels = []
-    for r in rows:
+    for r in rows + tool_rows:
         counter = names[r["name"]]
         kernels.append(dict(r, launches=launches[r["path"]][counter],
-                            launches_by_path={p: c[counter] for p, c in launches.items()}))
+                            launches_by_path={p: c[counter] for p, c in launches.items()
+                                              if counter in c}))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,15 @@
 """Builds the port's CUDA sources (``csrc/*.cu``) into shared libraries.
 
 Each source has a plain C interface and is compiled on its own by ``nvcc``
-into ``_build/<name>-<digest>.so``, then loaded with ctypes.  The digest
-covers the source and every header under ``csrc/``, so an edited source
-rebuilds and an unchanged one is reused.  A library is built at its first
-use; ``build()`` starts every missing one at once (one nvcc process per
-source, run in parallel).  A failed build raises with the compiler's
-output.
+into ``_build/<name>-<digest>.so``, then loaded with ctypes.  A source
+whose template instantiations take one ``nvcc`` too long is split: it is
+compiled several times, each time with other ``-D`` defines that select
+a share of its instantiations, into libraries named ``<source>.<part>``.
+The digest covers the source, its defines and every header under
+``csrc/``, so an edited source rebuilds and an unchanged one is reused.  A
+library is built at its first use; ``build()`` starts every missing one at
+once (one nvcc process per library, run in parallel).  A failed build
+raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -22,11 +25,27 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("ntt", "poseidon")
+# poseidon_variants.cu holds 20 instantiations of the X2 kernel: one nvcc
+# over all of them takes about 150 s, over the 5 of one sq/dual choice up
+# to 73 s (the dual ones), so each part holds 2 or 3.
+SPLITS = {
+    "poseidon_variants": {
+        f"sq{sq}_ns{ns}_{group}": [f"-DX2_SQ={sq}", f"-DX2_NS={ns}", f"-DX2_PROBES={probes}"]
+        for sq in (0, 1) for ns in (1, 2) for probes, group in ((0, "perm"), (1, "probes"))},
+}
+SOURCES = ("ntt", "poseidon", "poseidon_stream") + tuple(
+    f"{src}.{part}" for src, parts in SPLITS.items() for part in parts)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+
+def _source(name: str) -> tuple[Path, list[str]]:
+    """The .cu file and the extra defines of library `name`."""
+    src, _, part = name.partition(".")
+    return CSRC / f"{src}.cu", SPLITS[src][part] if part else []
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,11 +62,12 @@ def nvcc() -> str:
 
 
 def _digest(name: str) -> str:
+    src, defines = _source(name)
     h = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for path in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return h.hexdigest()[:16]
 
 
@@ -68,19 +88,25 @@ def build(names=SOURCES) -> dict[str, float]:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(BUILD_DIR / f"{name}.log", "w")
-        cmd = [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        src, defines = _source(name)
+        cmd = [compiler, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                        time.perf_counter(), tmp, out, log)
     failed = []
-    for name, (proc, t0, tmp, out, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        times[name] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(name)
-            continue
-        os.replace(tmp, out)
+    while procs:
+        for name, (proc, t0, tmp, out, log) in list(procs.items()):
+            rc = proc.poll()
+            if rc is None:
+                continue
+            del procs[name]
+            log.close()
+            times[name] = time.perf_counter() - t0
+            if rc != 0:
+                failed.append(name)
+            else:
+                os.replace(tmp, out)
+        if procs:
+            time.sleep(0.05)
     if failed:
         logs = "\n".join(
             (BUILD_DIR / f"{n}.log").read_text()[-4000:] for n in failed)
@@ -89,7 +115,8 @@ def build(names=SOURCES) -> dict[str, float]:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if missing."""
+    """The loaded library `name` (csrc/<name>.cu, or a part of a split
+    source), built first if missing."""
     with _lock:
         if name not in _libs:
             build([name])

@@ -43,3 +43,32 @@ class PhaseTimer:
 
     def summary(self) -> dict[str, float]:
         return dict(sorted(self.timings.items(), key=lambda kv: -kv[1]))
+
+
+def chain_ms(fn, x: torch.Tensor, k: int, reps: int) -> float:
+    """Milliseconds of one call of `fn` in a chain of `k` calls (each takes
+    the previous output), the best of `reps` chains after one warm-up call.
+    On a CUDA tensor the chain is timed by CUDA events on the current
+    stream; on the CPU by the host clock."""
+    fn(x)
+    best = float("inf")
+    for _ in range(reps):
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cur = x
+            for _ in range(k):
+                cur = fn(cur)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / k
+        else:
+            t0 = time.perf_counter()
+            cur = x
+            for _ in range(k):
+                cur = fn(cur)
+            ms = (time.perf_counter() - t0) * 1e3 / k
+        best = min(best, ms)
+    return best

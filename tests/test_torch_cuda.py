@@ -13,6 +13,7 @@ import torch
 from pil2_stark_tpu_torch.field import torch_gl
 from pil2_stark_tpu_torch.hash import cuda_poseidon
 from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+from pil2_stark_tpu_torch.tools import exp_poseidon, exp_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +92,30 @@ def test_ntt_round_trip_at_2_25(card):
 def test_poseidon_kernel_equals_plain(card, batch):
     s = _rand((12, batch), batch, card)
     assert torch.equal(cuda_poseidon.permute(s), cuda_poseidon.permute_plain(s))
+
+
+X2_VARIANTS = ["packed", "packed-nosq", "packed-lazy", "packed-dual", "packed-lazy-dual",
+               "packed-p4x", "packed-psl", "nomxu", "packed-nops", "packed-nofs"]
+
+
+@pytest.mark.parametrize("variant", X2_VARIANTS)
+@pytest.mark.parametrize("block", [256, 2048])
+def test_poseidon_variant_kernel_equals_plain(card, variant, block):
+    s = _rand((12, 1 << 14), 14, card)
+    before = exp_poseidon.permute_variant.launches
+    got = exp_poseidon.build(variant, (1 << 14) // block, block)(s)
+    assert exp_poseidon.permute_variant.launches == before + 1
+    assert torch.equal(got, exp_poseidon.permute_variant_plain(s, variant))
+
+
+@pytest.mark.parametrize("bits", [14, 19])
+def test_stream_kernel_equals_plain(card, bits):
+    """2^19 states are 256 tiles: more than one per CTA of the persistent grid."""
+    s = _rand((12, 1 << bits), bits, card)
+    before = exp_stream.permute_stream.launches
+    got = exp_stream.build_stream((1 << bits) // exp_stream.BLK)(s)
+    assert exp_stream.permute_stream.launches == before + 1
+    assert torch.equal(got, cuda_poseidon.permute_plain(s))
 
 
 def test_ntt_on_card_equals_cpu(card):

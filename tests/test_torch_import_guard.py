@@ -75,3 +75,15 @@ def test_cuda_wrappers_refuse_other_devices():
         cuda_ntt.base_grid(x.reshape(48, 1), 2, 12, False)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_ntt.base_rows(x.reshape(4, 12), 2, False)
+
+
+def test_tool_wrappers_refuse_other_devices():
+    from pil2_stark_tpu_torch.tools import exp_poseidon, exp_stream
+
+    x = torch.zeros((12, 2048), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        exp_poseidon.permute_variant(x, "packed", 2048)
+    with pytest.raises(ValueError, match="unsupported device"):
+        exp_poseidon.build("packed-lazy-dual", 1, 2048)(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        exp_stream.build_stream(1)(x)
