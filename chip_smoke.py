@@ -5,14 +5,18 @@
 
 Phases, each printing one JSON line:
   1. build       — compile every CUDA source of the port (one nvcc per
-                   source, all in parallel);
+                   source, all in parallel); registers and spills from
+                   ptxas, and B4's SASS instructions per permutation by
+                   class (cuobjdump) for its three builds;
   2. kernels     — run each kernel at the shapes each prove path gives it
                    (B2 level_planar and B3 base_grid at the widest planar
                    transforms, B4 Poseidon at the leaf batch of each tree,
                    B1 base_rows at the FRI fold and the two bases of the
                    2^25 prove) on random values plus near-p corners, and
                    require output equal bit for bit to its plain PyTorch
-                   version; time both;
+                   version; time both.  B4's other builds (one CTA per
+                   SM; the schedule before poseidon_fast.cuh) are held
+                   and timed on the same inputs;
   3. tools       — the Poseidon experiment tools: kernel X2 (every variant
                    of tools/exp_poseidon, at its own 2^16 states with
                    blocks 512 and 2048) and X1 (tools/exp_stream, at 2^14
@@ -42,6 +46,7 @@ card; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -59,7 +64,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
 # integer multiply-add rate is half the FP32 FMA rate (67e12 FLOP/s / 2
 # FLOP per FMA / 2).  A GL multiply (64x64->128 product + reduction) is
-# counted as 8 such multiply-adds.
+# counted as 8 such multiply-adds (the 128-bit product alone needs at
+# least 4, its four 32x32->64 partial products; the bound keeps 8).
 IMAD_PER_S = 67e12 / 4
 IMAD_PER_GL_MUL = 8
 # Poseidon: 1,122 GL multiplies per permutation plus 7 products by the
@@ -153,6 +159,93 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
+def cuobjdump():
+    """The CUDA toolkit's cuobjdump, or Triton's bundled copy; None if
+    neither is on this machine."""
+    import importlib.util
+    import os
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    places = ["/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.submodule_search_locations:
+        places += [os.path.join(d, "backends", "nvidia", "bin", "cuobjdump")
+                   for d in spec.submodule_search_locations]
+    return next((p for p in places if os.path.exists(p)), None)
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+SASS_CLASSES = {"IMAD": "IMAD", "IADD3": "IADD3", "ISETP": "ISETP+SEL", "SEL": "ISETP+SEL",
+                "MOV": "move", "LDC": "const load", "ULDC": "const load",
+                "LDL": "spill", "STL": "spill"}
+
+
+def sass_class(op: str) -> str:
+    if op.startswith("IMAD.MOV"):
+        return "move"
+    return SASS_CLASSES.get(op.split(".")[0], "other")
+
+
+def sass_counts(lib_name: str, kernel: str, trips: list) -> dict:
+    """SASS instructions of `kernel` in a built library, by class, and per
+    thread of one launch: each instruction inside a loop (a backward
+    branch) counts once per trip of every loop around it, the loops in
+    order of their first address taking `trips`.  One thread of B4 makes
+    one permutation, so that is the count per permutation."""
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    tool = cuobjdump()
+    if tool is None:
+        return {"measured": False, "why": "no cuobjdump on this machine"}
+    out = subprocess.run([tool, "-sass", str(cuda_build.library_path(lib_name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        return {"measured": False, "why": out.stderr.strip()[-300:]}
+    insns, inside = [], False
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+        elif inside and (m := SASS_LINE.search(ln)):
+            insns.append((int(m[1], 16), m[2], m[3]))
+    if not insns:
+        return {"measured": False, "why": f"no function {kernel} in the SASS"}
+    loops = []
+    for addr, op, args in insns:
+        t = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and t and int(t[1], 16) < addr:
+            loops.append((int(t[1], 16), addr))
+    loops.sort()
+    res = {"measured": True, "static": len(insns),
+           "loops": [[a, b, sum(1 for x, *_ in insns if a <= x <= b)] for a, b in loops]}
+    if len(loops) != len(trips):
+        res["per_permutation"] = None
+        res["why"] = f"{len(loops)} loops, expected {len(trips)}"
+        return res
+    per_class: dict = {}
+    for addr, op, _ in insns:
+        w = 1
+        for (a, b), n in zip(loops, trips):
+            if a <= addr <= b:
+                w *= n
+        c = sass_class(op)
+        per_class[c] = per_class.get(c, 0) + w
+    res["per_permutation"] = sum(per_class.values())
+    res["per_permutation_by_class"] = per_class
+    return res
+
+
+# B4's builds: the port's, the other launch bound, the schedule before
+# poseidon_fast.cuh; each kernel loops over the first full rounds, the
+# partial rounds and the last full rounds
+B4_BUILDS = ("poseidon", "poseidon.mb1", "poseidon.old")
+B4_TRIPS = [3, 22, 3]
+
+
 def exact_err(a, b) -> float:
     """max_abs_err, with the equal case decided on the card."""
     import torch
@@ -166,8 +259,9 @@ def phase_build():
     t0 = time.perf_counter()
     times = cuda_build.build()
     ptxas = {name: ptxas_summary(cuda_build.build_log(name)) for name in cuda_build.SOURCES}
+    sass = {name: sass_counts(name, "poseidon_kernel", B4_TRIPS) for name in B4_BUILDS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": times,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "b4_sass": sass})
 
 
 def phase_kernels(device):
@@ -250,13 +344,24 @@ def _poseidon_row(device, batch, path):
                           for i in range(0, s.shape[1], step)], dim=1)
 
     state = random_field((12, batch), 7, device)
-    err = max_abs_err(cuda_poseidon.permute(state), plain(state))
+    want = plain(state)
+    err = max_abs_err(cuda_poseidon.permute(state), want)
     row = _kernel_row(
         "poseidon", "pil2_stark_tpu_torch/csrc/poseidon.cu",
         "pil2_stark_tpu/hash/pallas_poseidon.py:433", err,
         lambda: cuda_poseidon.permute(state), lambda: plain(state),
         batch * POSEIDON_IMAD, 2 * 12 * batch * 8, {"batch": batch}, path)
-    del state
+    # B4's other builds on the same inputs, in turns with the port's build
+    reps = 20 if batch <= 1 << 22 else 5
+    others = {}
+    for name in B4_BUILDS[1:]:
+        fn = functools.partial(cuda_poseidon.launch_library, name)
+        others[name] = {"max_abs_err": exact_err(fn(state), want),
+                        "ms": cuda_ms(lambda: fn(state), reps),
+                        "ms_port_build_after": cuda_ms(lambda: cuda_poseidon.permute(state), reps)}
+    row["other_builds"] = others
+    row["max_abs_err"] = max(row["max_abs_err"], *(o["max_abs_err"] for o in others.values()))
+    del state, want
     torch.cuda.empty_cache()
     return row
 

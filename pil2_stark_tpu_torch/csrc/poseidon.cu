@@ -2,40 +2,66 @@
 //
 // Replaces the Pallas kernel of pil2_stark_tpu/hash/pallas_poseidon.py
 // (_permute_combined :433 -> _pallas_permute :404, body _kernel :320),
-// "B4".  The schedule is poseidon_perm.cuh's with canonical operations:
-// output is canonical.
+// "B4".  The schedule is poseidon_fast.cuh's: lazy values, one reduction
+// per dot product, carry chains; any u64 in, canonical out.
 //
 // Layout: planar (12, B) u64, one thread per state, the 12 elements in
 // registers; loads and stores are coalesced (thread i reads column i of
 // every row).
 //
-// Bound on the H100: integer multiplies.  One permutation does 1,122 GL
-// multiplies (8·12·4 x^7 in the full rounds, 22·4 in the partial rounds,
-// 144 for P, 22·23 for the S_r) — each a 64x64->128-bit product plus the
-// reduction — while it moves only 192 bytes.  M has entries below 2^6, so
-// its product runs as 32-bit-half multiply-accumulates with one reduction
-// per output instead of 12 GL multiplies.
+// Bound on the H100: the integer instruction stream.  One permutation does
+// 1,122 64x64->128-bit products (8·12·4 for x^7 in the full rounds, 22·4
+// in the partial rounds, 144 for P, 22·23 for the S_r) and 7 products by
+// the small MDS matrix M, while it moves only 192 bytes; each product's
+// reduction and carries cost more instructions than its multiply-adds.
+// The partial rounds are a serial chain per state (S-box -> dot product
+// -> next S-box), so the warps an SM holds decide how much of its latency
+// is hidden.  B4_MIN_BLOCKS is the launch bound's CTAs per SM: 2 caps a
+// thread at 128 registers (24 B of spill) and holds 16 warps per SM;
+// chip_smoke.py times it beside a build with 1 (250 registers, 8 warps),
+// and PERF.md keeps both times.
+//
+// -DB4_OLD_SCHEDULE=1 builds the schedule B4 ran before poseidon_fast.cuh
+// (poseidon_perm.cuh's canonical instance, every product and sum
+// canonical) behind the same entry point, so that chip_smoke.py can time
+// and count both on one card; the port never loads that build.
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "poseidon_perm.cuh"
+#include "poseidon_fast.cuh"
+
+#ifndef B4_MIN_BLOCKS
+#define B4_MIN_BLOCKS 2
+#endif
+#ifndef B4_OLD_SCHEDULE
+#define B4_OLD_SCHEDULE 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 using poseidon::T;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, B4_MIN_BLOCKS)
 poseidon_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                 long long batch) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
+#if B4_OLD_SCHEDULE
   uint64_t s[1][T];
 #pragma unroll
   for (int i = 0; i < T; ++i) s[0][i] = gl::canon(in[i * batch + b]);
   poseidon::permute<poseidon::CanonicalOps, poseidon::kNone>(s);
 #pragma unroll
   for (int i = 0; i < T; ++i) out[i * batch + b] = s[0][i];
+#else
+  uint64_t s[T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) s[i] = in[i * batch + b];
+  poseidon_fast::permute(s);
+#pragma unroll
+  for (int i = 0; i < T; ++i) out[i * batch + b] = s[i];
+#endif
 }
 
 }  // namespace

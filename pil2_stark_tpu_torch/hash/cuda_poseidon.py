@@ -11,6 +11,11 @@ kernel for a CUDA tensor (building it at first use) or raises; it counts
 its launches in ``permute.launches``.  The kernel's round constants and
 matrices are compiled in from csrc/poseidon_constants.cuh, which
 ``constants_header()`` regenerates from poseidon_gl_constants.npz.
+
+The kernel's schedule (csrc/poseidon_fast.cuh: lazy values, one reduction
+per dot product, carry chains) has a twin on python ints here,
+``permute_fast_int`` and its helpers, which follows each carry and borrow
+of the kernel's asm and checks the bounds the kernel relies on.
 """
 from __future__ import annotations
 
@@ -88,14 +93,27 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
     return _mds_small(gl.pow7(s), k["MT"])
 
 
-def _lib():
-    lib = cuda_build.lib("poseidon")
+def _lib(name: str):
+    lib = cuda_build.lib(name)
     if not getattr(lib, "_typed", False):
         vp = ctypes.c_void_p
         lib.poseidon_permute.argtypes = [vp, vp, ctypes.c_longlong, vp]
         lib.poseidon_permute.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def launch_library(name: str, state: torch.Tensor) -> torch.Tensor:
+    """One uncounted launch of library `name` (a build of csrc/poseidon.cu,
+    see cuda_build.SPLITS) on a (12, B) int64 CUDA tensor.  The port calls
+    ``permute``; chip_smoke.py times B4's other builds through this."""
+    state = state.contiguous()
+    out = torch.empty_like(state)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream)
+    rc = _lib(name).poseidon_permute(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: poseidon_permute launch failed: CUDA error {rc}")
+    return out
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
@@ -105,17 +123,140 @@ def permute(state: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"poseidon permute: unsupported device {state.device}")
     if state.dtype != torch.int64 or state.dim() != 2 or state.shape[0] != T:
         raise ValueError(f"poseidon permute: want (12, B) int64, got {state.dtype} {tuple(state.shape)}")
-    state = state.contiguous()
-    out = torch.empty_like(state)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream)
-    rc = _lib().poseidon_permute(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"poseidon_permute launch failed: CUDA error {rc}")
+    out = launch_library("poseidon", state)
     permute.launches += 1
     return out
 
 
 permute.launches = 0
+
+
+# ---- python-int twin of csrc/poseidon_fast.cuh --------------------------
+
+PRIME = 0xFFFFFFFF00000001
+EPS = 0xFFFFFFFF
+W = (1 << 64) - 1
+
+
+def mul128(a: int, b: int) -> tuple[int, int]:
+    """a·b as (lo, hi) words."""
+    x = a * b
+    return x & W, x >> 64
+
+
+def mad_wide(a: int, b: int, c: int) -> tuple[int, int]:
+    """a·b + c as (lo, hi): mad.lo.cc.u64 / madc.hi.u64; hi never wraps."""
+    lo = (a * b & W) + c
+    hi = (a * b >> 64) + (lo >> 64)
+    assert hi <= W
+    return lo & W, hi
+
+
+def reduce(lo: int, hh: int, hl: int) -> int:
+    """(hh·2^96 + hl·2^64 + lo) mod p, lazy (< 2^64), hh < 2^36, hl < 2^32:
+    lo - hh with one borrow folded, then + hl·EPS with one carry folded."""
+    assert 0 <= lo <= W and 0 <= hh < 1 << 36 and 0 <= hl <= EPS
+    t0 = lo - hh
+    if t0 < 0:  # sub.cc / subc: e = EPS
+        t0 += 1 << 64
+        t0 -= EPS
+        assert t0 >= 0
+    r = t0 + ((hl << 32) - hl)
+    if r > W:  # add.cc / addc, neg: + EPS
+        r = (r & W) + EPS
+        assert r <= W
+    return r
+
+
+def reduce128(lo: int, hi: int) -> int:
+    return reduce(lo, hi >> 32, hi & EPS)
+
+
+def mad_reduce(a: int, b: int, c: int) -> int:
+    """(a·b + c) mod p, lazy, one reduction."""
+    return reduce128(*mad_wide(a, b, c))
+
+
+def mul_lazy(a: int, b: int) -> int:
+    return reduce128(*mul128(a, b))
+
+
+def sbox_add(x: int, c: int) -> int:
+    """(x^7 + c) mod p, lazy; c is added to the last product."""
+    x2 = mul_lazy(x, x)
+    x3 = mul_lazy(x2, x)
+    x4 = mul_lazy(x2, x2)
+    return mad_reduce(x4, x3, c)
+
+
+def acc3_mad(acc: tuple[int, int, int], a: int, b: int) -> tuple[int, int, int]:
+    """Three-word accumulator (a0, a1, a2) += a·b: mad.lo.cc.u64,
+    madc.hi.cc.u64, addc.u32."""
+    a0, a1, a2 = acc
+    lo = (a * b & W) + a0
+    mid = (a * b >> 64) + a1 + (lo >> 64)
+    a2 += mid >> 64
+    assert a2 <= 0xFFFFFFFF
+    return lo & W, mid & W, a2
+
+
+def reduce192(acc: tuple[int, int, int]) -> int:
+    """(a2·2^128 + a1·2^64 + a0) mod p, lazy: a2·2^128 ≡ -a2·2^32 joins
+    -hh·2^96 as hh + a2·2^32 (disjoint bits of one word)."""
+    a0, a1, a2 = acc
+    assert a2 < 16
+    return reduce(a0, (a1 >> 32) | (a2 << 32), a1 & EPS)
+
+
+def dot_lazy(xs, cs) -> int:
+    """Σ xs[j]·cs[j] mod p, lazy: one three-word sum, one reduction."""
+    acc = (0, 0, 0)
+    for x, c in zip(xs, cs):
+        acc = acc3_mad(acc, x, c)
+    return reduce192(acc)
+
+
+def mds_lazy(s: list) -> list:
+    """out_i = Σ_j s_j·M[j][i]: 32-bit halves accumulated apart, then
+    lo + hi·EPS with one carry folded (hi < 2^11)."""
+    out = []
+    for i in range(T):
+        acc_lo = sum((s[j] & EPS) * int(ref.M[j][i]) for j in range(T))
+        acc_hi = sum((s[j] >> 32) * int(ref.M[j][i]) for j in range(T))
+        assert acc_lo < 1 << 42 and acc_hi < 1 << 42
+        lo = acc_lo + ((acc_hi << 32) & W)
+        hi = (acc_hi >> 32) + (lo >> 64)
+        assert hi < 1 << 11
+        r = (lo & W) + (hi << 32) - hi
+        if r > W:
+            r = (r & W) + EPS
+        out.append(r)
+    return out
+
+
+def permute_fast_int(state) -> list:
+    """One state (12 ints, any u64) through B4's schedule; canonical out."""
+    c = [int(v) for v in ref.C]
+    sm = [int(v) for v in ref.S]
+    pm = [[int(v) for v in row] for row in ref.P]
+    s = []
+    for i in range(T):
+        t = int(state[i]) + c[i]
+        s.append(t - (1 << 64) + EPS if t > W else t)
+    for r in range(HALF_F - 1):
+        s = mds_lazy([sbox_add(x, c[(r + 1) * T + i]) for i, x in enumerate(s)])
+    s = [sbox_add(x, c[HALF_F * T + i]) for i, x in enumerate(s)]
+    s = [dot_lazy(s, [pm[j][i] for j in range(T)]) for i in range(T)]
+    for r in range(RP):
+        srow = sm[(2 * T - 1) * r:(2 * T - 1) * (r + 1)]
+        s0 = sbox_add(s[0], c[(HALF_F + 1) * T + r])
+        new0 = dot_lazy(s[1:] + [s0], srow[1:T] + [srow[0]])  # the kernel's order
+        s = [new0] + [mad_reduce(s0, srow[T + k - 1], s[k]) for k in range(1, T)]
+    base = (HALF_F + 1) * T + RP
+    for r in range(HALF_F - 1):
+        s = mds_lazy([sbox_add(x, c[base + r * T + i]) for i, x in enumerate(s)])
+    s = mds_lazy([sbox_add(x, 0) for x in s])
+    return [x - PRIME if x >= PRIME else x for x in s]
 
 
 def constants_header() -> str:

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from pil2_stark_tpu_torch.field import torch_gl
-from pil2_stark_tpu_torch.hash import cuda_poseidon
+from pil2_stark_tpu_torch.hash import cuda_poseidon, merkle, torch_poseidon
 from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
 from pil2_stark_tpu_torch.tools import exp_poseidon, exp_stream
 
@@ -88,10 +88,44 @@ def test_ntt_round_trip_at_2_25(card):
     torch.cuda.empty_cache()
 
 
-@pytest.mark.parametrize("batch", [1, 255, 4097])
+@pytest.mark.parametrize("batch", [1, 255, 257, 4097])
 def test_poseidon_kernel_equals_plain(card, batch):
     s = _rand((12, batch), batch, card)
     assert torch.equal(cuda_poseidon.permute(s), cuda_poseidon.permute_plain(s))
+
+
+@pytest.mark.parametrize("case", ["non_canonical", "minus_one", "zero", "p_minus_1"])
+def test_poseidon_kernel_edge_states(card, case):
+    """B4 takes any u64 bit pattern as its residue (no canon at entry) and
+    gives canonical output; states at the ends of the field."""
+    n = 1000
+    if case == "non_canonical":
+        a = np.random.default_rng(3).integers(P, 1 << 64, size=(12, n), dtype=np.uint64)
+        a[:, 0] = np.uint64(P)
+    else:
+        v = {"minus_one": (1 << 64) - 1, "zero": 0, "p_minus_1": P - 1}[case]
+        a = np.full((12, n), v, dtype=np.uint64)
+    s = torch_gl.from_u64(a, card)
+    got = cuda_poseidon.permute(s)
+    assert torch.equal(got, cuda_poseidon.permute_plain(s))
+    assert bool((torch_gl.to_u64(got) < np.uint64(P)).all())
+    want = cuda_poseidon.permute_fast_int([int(x) for x in a[:, 0]])
+    assert [int(x) for x in torch_gl.to_u64(got[:, 0])] == want
+
+
+def test_merkle_tree_on_card_equals_host_tree(card):
+    """2^16 leaves of 8 columns: every level of the card's tree (B4 for the
+    leaf sponge and each level) equals the host tree's."""
+    height, width = 1 << 16, 8
+    rows = np.random.default_rng(16).integers(0, P, size=(height, width), dtype=np.uint64)
+    before = cuda_poseidon.permute.launches
+    levels = torch_poseidon.merkle_levels_planar(torch_gl.from_u64(rows.T.copy(), card),
+                                                 width, height)
+    assert cuda_poseidon.permute.launches - before == 17  # the leaves, then 16 levels
+    tree = merkle.merkelize(rows, width, height)
+    assert len(levels) == len(tree.levels)
+    for got, want in zip(levels, tree.levels):
+        np.testing.assert_array_equal(torch_gl.to_u64(got).T, want)
 
 
 X2_VARIANTS = ["packed", "packed-nosq", "packed-lazy", "packed-dual", "packed-lazy-dual",

@@ -79,3 +79,72 @@ def test_transcript_matches_jax():
     assert a.get_field() == b.get_field()
     assert a.get_state() == b.get_state()
     assert a.get_permutations(16, 12) == b.get_permutations(16, 12)
+
+
+# ---- the python-int twin of kernel B4's schedule (csrc/poseidon_fast.cuh) --
+
+W = (1 << 64) - 1
+EPS32 = 0xFFFFFFFF
+PRODUCT_CASES = {
+    "max_products": [(W, W)] * 12,
+    "zero": [(0, 0)] * 12,
+    "multiples_of_p": [(P, W), (2 * P - (1 << 64) + W, P - 1)] + [(P, P)] * 10,
+    "p_minus_1": [(P - 1, P - 1)] * 12,
+    "mixed": [(W, P - 1), (P, 1), (0, W), (1 << 63, 1 << 32)] * 3,
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCT_CASES))
+def test_fast_dot_product_reduces_once(case):
+    """Twelve 128-bit products in three words (a2 < 16), one reduce192;
+    the result is a u64 representative of the sum mod p."""
+    terms = [(a & W, b & W) for a, b in PRODUCT_CASES[case]]
+    acc = (0, 0, 0)
+    for a, b in terms:
+        acc = cuda_poseidon.acc3_mad(acc, a, b)
+    exact = sum(a * b for a, b in terms)
+    assert acc[0] + (acc[1] << 64) + (acc[2] << 128) == exact
+    assert acc[2] < 16
+    r = cuda_poseidon.reduce192(acc)
+    assert 0 <= r <= W and r % P == exact % P
+    assert cuda_poseidon.dot_lazy(*zip(*terms)) == r
+
+
+@pytest.mark.parametrize("a,b,c", [(W, W, W), (0, 0, 0), (P, P, P), (W, P - 1, P - 1),
+                                   (1, 1, W), (P - 1, 2, 0), (1 << 32, 1 << 32, 0)])
+def test_fast_mad_reduce_at_extremes(a, b, c):
+    """a·b + c: the carry chain keeps the 128-bit sum exact, the reduction
+    folds one borrow and one carry and leaves a u64 representative."""
+    lo, hi = cuda_poseidon.mad_wide(a, b, c)
+    assert lo + (hi << 64) == a * b + c
+    r = cuda_poseidon.mad_reduce(a, b, c)
+    assert 0 <= r <= W and r % P == (a * b + c) % P
+    assert cuda_poseidon.mul_lazy(a, b) % P == a * b % P
+
+
+def test_fast_reductions_random_and_borrow_paths():
+    rng = np.random.default_rng(4)
+    words = [int(v) for v in rng.integers(0, 1 << 64, size=3000, dtype=np.uint64)]
+    edges = [0, 1, EPS32, EPS32 + 1, P - 1, P, W]
+    words[:len(edges)] = edges
+    for lo, hi in zip(words[::2], words[1::2]):
+        assert cuda_poseidon.reduce128(lo, hi) % P == (lo + (hi << 64)) % P
+    for lo, hh, hl in [(0, (1 << 36) - 1, EPS32), (5, 6, 0), (W, 0, EPS32), (0, 1, 0)]:
+        r = cuda_poseidon.reduce(lo, hh, hl)  # lo < hh takes the borrow fold
+        assert 0 <= r <= W and r % P == (lo + (hl << 64) + (hh << 96)) % P
+    s = [W] * 12
+    assert [x % P for x in cuda_poseidon.mds_lazy(s)] == [
+        sum(W * int(cuda_poseidon.ref.M[j][i]) for j in range(12)) % P for i in range(12)]
+
+
+def test_fast_schedule_twin_matches_oracle():
+    """The kernel's schedule on python ints, from any u64 state, equals the
+    numpy oracle on the state's canonical residues."""
+    rng = np.random.default_rng(5)
+    states = [list(range(12)), [0] * 12, [P - 1] * 12, [W] * 12, [P] * 12,
+              [int(v) for v in rng.integers(P, 1 << 64, size=12, dtype=np.uint64)],
+              [int(v) for v in rng.integers(0, P, size=12, dtype=np.uint64)]]
+    want = jposeidon.permute(np.array([[v % P for v in st] for st in states], dtype=np.uint64))
+    for st, w in zip(states, want):
+        assert cuda_poseidon.permute_fast_int(st) == [int(v) for v in w]
+    assert cuda_poseidon.permute_fast_int(list(range(12)))[:4] == GOLDEN
