@@ -1,7 +1,8 @@
+#!/usr/bin/env python3
 """A/B of checkouts on one card: kernel B4's time and the fibonacci 2^22 /
 ext 2^25 prove, one process per checkout, in the order given.
 
-    python -m pil2_stark_tpu_torch.tools.ab_trees PARENT . . PARENT
+    python3 ab_trees.py PARENT . . PARENT
 
 Each argument is the root of a checkout of this repository (for the parent
 commit, unpack `git archive <commit>` into a directory that .gitignore

@@ -6,17 +6,16 @@
 Phases, each printing one JSON line:
   1. build       — compile every CUDA source of the port (one nvcc per
                    source, all in parallel); registers and spills from
-                   ptxas, and B4's SASS instructions per permutation by
-                   class (cuobjdump) for its three builds;
+                   ptxas, and SASS instructions per permutation by
+                   class (cuobjdump) of B4 and of the schedule before it,
+                   which X1 still runs;
   2. kernels     — run each kernel at the shapes each prove path gives it
                    (B2 level_planar and B3 base_grid at the widest planar
                    transforms, B4 Poseidon at the leaf batch of each tree,
                    B1 base_rows at the FRI fold and the two bases of the
                    2^25 prove) on random values plus near-p corners, and
                    require output equal bit for bit to its plain PyTorch
-                   version; time both.  B4's other builds (one CTA per
-                   SM; the schedule before poseidon_fast.cuh) are held
-                   and timed on the same inputs;
+                   version; time both;
   3. tools       — the Poseidon experiment tools: kernel X2 (every variant
                    of tools/exp_poseidon, at its own 2^16 states with
                    blocks 512 and 2048) and X1 (tools/exp_stream, at 2^14
@@ -46,7 +45,6 @@ card; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import re
 import subprocess
@@ -64,10 +62,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
 # integer multiply-add rate is half the FP32 FMA rate (67e12 FLOP/s / 2
 # FLOP per FMA / 2).  A GL multiply (64x64->128 product + reduction) is
-# counted as 8 such multiply-adds (the 128-bit product alone needs at
-# least 4, its four 32x32->64 partial products; the bound keeps 8).
+# counted as 4 such multiply-adds, the four 32x32->64 partial products of
+# its 128-bit product: the least it needs (its reduction needs none).
 IMAD_PER_S = 67e12 / 4
-IMAD_PER_GL_MUL = 8
+IMAD_PER_GL_MUL = 4
 # Poseidon: 1,122 GL multiplies per permutation plus 7 products by the
 # small MDS matrix, each 144 entries × 2 halves multiply-adds.
 POSEIDON_IMAD = 1122 * IMAD_PER_GL_MUL + 7 * 144 * 2
@@ -191,12 +189,15 @@ def sass_class(op: str) -> str:
     return SASS_CLASSES.get(op.split(".")[0], "other")
 
 
-def sass_counts(lib_name: str, kernel: str, trips: list) -> dict:
+def sass_counts(lib_name: str, kernel: str, trips: list, outer: bool = False) -> dict:
     """SASS instructions of `kernel` in a built library, by class, and per
-    thread of one launch: each instruction inside a loop (a backward
-    branch) counts once per trip of every loop around it, the loops in
-    order of their first address taking `trips`.  One thread of B4 makes
-    one permutation, so that is the count per permutation."""
+    permutation: each instruction inside a loop (a backward branch) counts
+    once per trip of every round loop around it, the round loops (the
+    len(trips) largest, in order of their first address) taking `trips`
+    and any other loop one.  One thread of B4 makes one permutation, so
+    its count per thread is the count per permutation.  With `outer`, only
+    the instructions of one trip of the loop around all others count: X1's
+    stage loop, in which each thread permutes one state."""
     from pil2_stark_tpu_torch.utils import cuda_build
 
     tool = cuobjdump()
@@ -220,16 +221,23 @@ def sass_counts(lib_name: str, kernel: str, trips: list) -> dict:
         if op.startswith("BRA") and t and int(t[1], 16) < addr:
             loops.append((int(t[1], 16), addr))
     loops.sort()
-    res = {"measured": True, "static": len(insns),
-           "loops": [[a, b, sum(1 for x, *_ in insns if a <= x <= b)] for a, b in loops]}
-    if len(loops) != len(trips):
+    res = {"measured": True, "static": len(insns)}
+    if outer and loops:
+        a0, b0 = max(loops, key=lambda lp: lp[1] - lp[0])
+        insns = [i for i in insns if a0 <= i[0] <= b0]
+        loops = [lp for lp in loops if lp != (a0, b0) and a0 <= lp[0] and lp[1] <= b0]
+        res["outer_loop"] = [a0, b0, len(insns)]
+    size = {lp: sum(1 for x, *_ in insns if lp[0] <= x <= lp[1]) for lp in loops}
+    res["loops"] = [[a, b, size[(a, b)]] for a, b in loops]
+    if len(loops) < len(trips):
         res["per_permutation"] = None
         res["why"] = f"{len(loops)} loops, expected {len(trips)}"
         return res
+    rounds = sorted(sorted(loops, key=size.get)[-len(trips):])
     per_class: dict = {}
     for addr, op, _ in insns:
         w = 1
-        for (a, b), n in zip(loops, trips):
+        for (a, b), n in zip(rounds, trips):
             if a <= addr <= b:
                 w *= n
         c = sass_class(op)
@@ -239,11 +247,9 @@ def sass_counts(lib_name: str, kernel: str, trips: list) -> dict:
     return res
 
 
-# B4's builds: the port's, the other launch bound, the schedule before
-# poseidon_fast.cuh; each kernel loops over the first full rounds, the
-# partial rounds and the last full rounds
-B4_BUILDS = ("poseidon", "poseidon.mb1", "poseidon.old")
-B4_TRIPS = [3, 22, 3]
+# the permutation loops over the first full rounds, the partial rounds
+# and the last full rounds
+ROUND_TRIPS = [3, 22, 3]
 
 
 def exact_err(a, b) -> float:
@@ -259,7 +265,11 @@ def phase_build():
     t0 = time.perf_counter()
     times = cuda_build.build()
     ptxas = {name: ptxas_summary(cuda_build.build_log(name)) for name in cuda_build.SOURCES}
-    sass = {name: sass_counts(name, "poseidon_kernel", B4_TRIPS) for name in B4_BUILDS}
+    # B4, and the schedule before poseidon_fast.cuh as X1 runs it: one trip
+    # of X1's stage loop is one permutation per thread
+    sass = {"poseidon": sass_counts("poseidon", "poseidon_kernel", ROUND_TRIPS),
+            "poseidon_stream": sass_counts("poseidon_stream", "stream_kernel", ROUND_TRIPS,
+                                           outer=True)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": times,
           "ptxas": ptxas, "b4_sass": sass})
 
@@ -344,24 +354,13 @@ def _poseidon_row(device, batch, path):
                           for i in range(0, s.shape[1], step)], dim=1)
 
     state = random_field((12, batch), 7, device)
-    want = plain(state)
-    err = max_abs_err(cuda_poseidon.permute(state), want)
+    err = max_abs_err(cuda_poseidon.permute(state), plain(state))
     row = _kernel_row(
         "poseidon", "pil2_stark_tpu_torch/csrc/poseidon.cu",
         "pil2_stark_tpu/hash/pallas_poseidon.py:433", err,
         lambda: cuda_poseidon.permute(state), lambda: plain(state),
         batch * POSEIDON_IMAD, 2 * 12 * batch * 8, {"batch": batch}, path)
-    # B4's other builds on the same inputs, in turns with the port's build
-    reps = 20 if batch <= 1 << 22 else 5
-    others = {}
-    for name in B4_BUILDS[1:]:
-        fn = functools.partial(cuda_poseidon.launch_library, name)
-        others[name] = {"max_abs_err": exact_err(fn(state), want),
-                        "ms": cuda_ms(lambda: fn(state), reps),
-                        "ms_port_build_after": cuda_ms(lambda: cuda_poseidon.permute(state), reps)}
-    row["other_builds"] = others
-    row["max_abs_err"] = max(row["max_abs_err"], *(o["max_abs_err"] for o in others.values()))
-    del state, want
+    del state
     torch.cuda.empty_cache()
     return row
 
@@ -412,8 +411,8 @@ def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape, path,
 def variant_imads(variant: str) -> int:
     """32-bit multiply-adds of one permutation under an X2 variant: the
     work it keeps.  A probe drops the multiplies it skips (nofs keeps the
-    S-box before the last matrix); a dedicated squaring costs three of a
-    multiply's four 32x32 partial products."""
+    S-box before the last matrix); a dedicated squaring needs three of a
+    product's four 32x32 partial products."""
     from pil2_stark_tpu_torch.tools import exp_poseidon
 
     v = exp_poseidon.parse(variant)
@@ -421,7 +420,7 @@ def variant_imads(variant: str) -> int:
     mat_muls = 0 if v.probe == "nomxu" else 144 + 22 * 23
     mds = 0 if v.probe == "nomxu" else 7 * 144 * 2
     squares = 2 * sboxes if v.sq else 0
-    return (4 * sboxes + mat_muls) * IMAD_PER_GL_MUL - 2 * squares + mds
+    return (4 * sboxes + mat_muls) * IMAD_PER_GL_MUL - squares + mds
 
 
 def phase_tools(device, kernel_rows):

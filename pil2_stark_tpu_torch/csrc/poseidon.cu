@@ -16,52 +16,32 @@
 // reduction and carries cost more instructions than its multiply-adds.
 // The partial rounds are a serial chain per state (S-box -> dot product
 // -> next S-box), so the warps an SM holds decide how much of its latency
-// is hidden.  B4_MIN_BLOCKS is the launch bound's CTAs per SM: 2 caps a
-// thread at 128 registers (24 B of spill) and holds 16 warps per SM;
-// chip_smoke.py times it beside a build with 1 (250 registers, 8 warps),
-// and PERF.md keeps both times.
-//
-// -DB4_OLD_SCHEDULE=1 builds the schedule B4 ran before poseidon_fast.cuh
-// (poseidon_perm.cuh's canonical instance, every product and sum
-// canonical) behind the same entry point, so that chip_smoke.py can time
-// and count both on one card; the port never loads that build.
+// is hidden.  The launch bound asks for 2 CTAs of 256 threads per SM:
+// that caps a thread at 128 registers (24 B of spill) and holds 16 warps
+// per SM; without it ptxas takes 250 registers (8 warps), 21 % slower
+// (PERF.md §6).
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "poseidon_fast.cuh"
 
-#ifndef B4_MIN_BLOCKS
-#define B4_MIN_BLOCKS 2
-#endif
-#ifndef B4_OLD_SCHEDULE
-#define B4_OLD_SCHEDULE 0
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 2;  // CTAs per SM
 using poseidon::T;
 
-__global__ void __launch_bounds__(kThreads, B4_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 poseidon_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                 long long batch) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
-#if B4_OLD_SCHEDULE
-  uint64_t s[1][T];
-#pragma unroll
-  for (int i = 0; i < T; ++i) s[0][i] = gl::canon(in[i * batch + b]);
-  poseidon::permute<poseidon::CanonicalOps, poseidon::kNone>(s);
-#pragma unroll
-  for (int i = 0; i < T; ++i) out[i * batch + b] = s[0][i];
-#else
   uint64_t s[T];
 #pragma unroll
   for (int i = 0; i < T; ++i) s[i] = in[i * batch + b];
   poseidon_fast::permute(s);
 #pragma unroll
   for (int i = 0; i < T; ++i) out[i * batch + b] = s[i];
-#endif
 }
 
 }  // namespace

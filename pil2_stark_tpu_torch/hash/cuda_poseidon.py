@@ -93,27 +93,14 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
     return _mds_small(gl.pow7(s), k["MT"])
 
 
-def _lib(name: str):
-    lib = cuda_build.lib(name)
+def _lib():
+    lib = cuda_build.lib("poseidon")
     if not getattr(lib, "_typed", False):
         vp = ctypes.c_void_p
         lib.poseidon_permute.argtypes = [vp, vp, ctypes.c_longlong, vp]
         lib.poseidon_permute.restype = ctypes.c_int
         lib._typed = True
     return lib
-
-
-def launch_library(name: str, state: torch.Tensor) -> torch.Tensor:
-    """One uncounted launch of library `name` (a build of csrc/poseidon.cu,
-    see cuda_build.SPLITS) on a (12, B) int64 CUDA tensor.  The port calls
-    ``permute``; chip_smoke.py times B4's other builds through this."""
-    state = state.contiguous()
-    out = torch.empty_like(state)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream)
-    rc = _lib(name).poseidon_permute(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: poseidon_permute launch failed: CUDA error {rc}")
-    return out
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
@@ -123,7 +110,12 @@ def permute(state: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"poseidon permute: unsupported device {state.device}")
     if state.dtype != torch.int64 or state.dim() != 2 or state.shape[0] != T:
         raise ValueError(f"poseidon permute: want (12, B) int64, got {state.dtype} {tuple(state.shape)}")
-    out = launch_library("poseidon", state)
+    state = state.contiguous()
+    out = torch.empty_like(state)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream)
+    rc = _lib().poseidon_permute(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"poseidon_permute launch failed: CUDA error {rc}")
     permute.launches += 1
     return out
 

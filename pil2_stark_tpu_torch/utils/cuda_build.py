@@ -27,12 +27,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 # poseidon_variants.cu holds 20 instantiations of the X2 kernel: one nvcc
 # over all of them takes about 150 s, over the 5 of one sq/dual choice up
-# to 73 s (the dual ones), so each part holds 2 or 3.  poseidon.cu (B4) is
-# also built with the other launch bound and with the schedule it had
-# before poseidon_fast.cuh, which chip_smoke.py times beside it; the port
-# itself loads only "poseidon".
+# to 73 s (the dual ones), so each part holds 2 or 3.
 SPLITS = {
-    "poseidon": {"mb1": ["-DB4_MIN_BLOCKS=1"], "old": ["-DB4_OLD_SCHEDULE=1", "-DB4_MIN_BLOCKS=1"]},
     "poseidon_variants": {
         f"sq{sq}_ns{ns}_{group}": [f"-DX2_SQ={sq}", f"-DX2_NS={ns}", f"-DX2_PROBES={probes}"]
         for sq in (0, 1) for ns in (1, 2) for probes, group in ((0, "perm"), (1, "probes"))},
