@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A/B of checkouts on one card: kernel B4's time and the fibonacci 2^22 /
-ext 2^25 prove, one process per checkout, in the order given.
+ext 2^25 prove (its phases and per-phase peak memory), one process per
+checkout, in the order given.
 
     python3 ab_trees.py PARENT . . PARENT
 
@@ -23,7 +24,7 @@ import subprocess
 import sys
 
 SETUP = "fibonacci_22"
-PHASES = ("commit", "friFold")
+PHASES = ("commit", "friFold", "friPol", "witness")
 
 SNIPPET = f"""
 import json, sys, torch
@@ -58,9 +59,8 @@ def run_tree(root: str) -> dict:
               if any(p in k for p in PHASES)}
     return {"tree": os.path.abspath(root), "b4_ms": b4, "verified": prove["verified"],
             "cold_s": prove["cold_s"], "warm_s": prove["warm_s"],
-            "commit_friFold_warm_s": phases,
-            "commit_friFold_sum_s": sum(phases.values()),
-            "launches": prove["launches"]}
+            "phases_warm_s": phases, "peak_device_bytes": prove["peak_device_bytes"],
+            "phases_peak_bytes": prove["phases_peak_bytes"], "launches": prove["launches"]}
 
 
 def main(roots) -> int:

@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
                    (B2 level_planar and B3 base_grid at the widest planar
                    transforms, B4 Poseidon at the leaf batch of each tree,
                    B1 base_rows at the FRI fold and the two bases of the
-                   2^25 prove) on random values plus near-p corners, and
+                   2^25 prove, T1 tac_eval on each TAC program of both
+                   proves at its size, T2 gl_xdiv with 2 openings at 2^22
+                   and 2^25) on random values plus near-p corners, and
                    require output equal bit for bit to its plain PyTorch
                    version; time both;
   3. tools       — the Poseidon experiment tools: kernel X2 (every variant
@@ -69,6 +71,12 @@ IMAD_PER_GL_MUL = 4
 # Poseidon: 1,122 GL multiplies per permutation plus 7 products by the
 # small MDS matrix, each 144 entries × 2 halves multiply-adds.
 POSEIDON_IMAD = 1122 * IMAD_PER_GL_MUL + 7 * 144 * 2
+# T2 per point and opening (csrc/tac.cu xdiv_kernel): 14 products for the
+# norm, 74 for its inverse (64 squarings, 10 products), 3 for the inverse's
+# components and 3 by x.
+XDIV_GL_MULS = 14 + 74 + 3 + 3
+TAC_SRC = "pil2_stark_tpu_torch/csrc/tac.cu"
+XLA_FUSION = "counterpart of an XLA fusion, not a pallas_call"
 # the Poseidon experiment tools (tools/exp_poseidon.py, tools/exp_stream.py)
 X2_VARIANTS = ("packed", "packed-nosq", "packed-lazy", "packed-dual", "packed-lazy-dual",
                "packed-p4x", "packed-psl", "nomxu", "packed-nops", "packed-nofs")
@@ -108,7 +116,8 @@ def random_field(shape, seed, device):
     rng = np.random.default_rng(seed)
     a = rng.integers(0, P, size=shape, dtype=np.uint64)
     flat = a.reshape(-1)
-    flat[: len(CORNERS)] = np.array(CORNERS, dtype=np.uint64) % np.uint64(P)
+    k = min(len(CORNERS), flat.size)
+    flat[:k] = np.array(CORNERS[:k], dtype=np.uint64) % np.uint64(P)
     return gl.from_u64(a, device)
 
 
@@ -140,19 +149,23 @@ def max_abs_err(a, b) -> float:
 
 
 def ptxas_summary(log: str) -> list:
-    """[kernel, registers, spill store bytes, spill load bytes] for each
-    entry function in nvcc's -Xptxas -v output."""
-    out, name, spill = [], None, [0, 0]
+    """[kernel, registers, spill store bytes, spill load bytes, stack frame
+    bytes] for each entry function in nvcc's -Xptxas -v output."""
+    out, name, spill, stack = [], None, [0, 0], 0
     for ln in log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", ln):
-            name, spill = m.group(1), [0, 0]
+            name, spill, stack = m.group(1), [0, 0], 0
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
             spill = [int(m.group(1)), int(m.group(2))]
+            if s := re.search(r"(\d+) bytes stack frame", ln):
+                stack = int(s.group(1))
         elif (m := re.search(r"Used (\d+) registers", ln)) and name:
             t = re.search(r"variant_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d)E", name)
-            label = (f"variant_kernel<sq={t[1]},lazy={t[2]},probe={t[3]},ns={t[4]}>"
-                     if t else name)
-            out.append([label, int(m.group(1)), *spill])
+            u = re.search(r"tac_kernelILi(\d+)E", name)
+            label = (f"variant_kernel<sq={t[1]},lazy={t[2]},probe={t[3]},ns={t[4]}>" if t
+                     else f"tac_kernel<{u[1]}>" if u
+                     else "xdiv_kernel" if "xdiv_kernel" in name else name)
+            out.append([label, int(m.group(1)), *spill, stack])
             name = None
     return out
 
@@ -292,6 +305,12 @@ def phase_kernels(device):
     rows += _ntt_rows(device, LARGE_N_BITS, LARGE_COLS, True, LARGE_SETUP)
     rows.append(_poseidon_row(device, 1 << LARGE_BITS, LARGE_SETUP))
     rows += _b1_rows(device)
+    # T1 on every TAC program each prove runs, T2 at each prove's extended
+    # domain
+    rows += _tac_rows(device, all_path, ("imPols", "q", "fri"))
+    rows += _tac_rows(device, LARGE_SETUP, ("imPols", "q", "fri"))
+    rows.append(_xdiv_row(device, N_BITS + 2, all_path))
+    rows.append(_xdiv_row(device, LARGE_BITS, LARGE_SETUP))
     for r in rows:
         emit({"phase": "kernels", **r})
     bad = [(r["name"], r["path"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
@@ -392,6 +411,100 @@ def _b1_rows(device):
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+def _ptxas(label):
+    """[registers, spill stores, spill loads, stack bytes] of a kernel of
+    csrc/tac.cu, from its build log."""
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    hit = [e[1:] for e in ptxas_summary(cuda_build.build_log("tac")) if e[0] == label]
+    return hit[0] if hit else None
+
+
+def _tac_program(setup, which):
+    info, exprs = setup["starkInfo"], setup["expressionsInfo"]
+    if which == "imPols":
+        return exprs["imPolsCode"][info["nStages"] - 1], "n"
+    exp_id = info["cExpId"] if which == "q" else info["friExpId"]
+    return next(e for e in exprs["expressionsCode"] if e["expId"] == exp_id)["code"], "ext"
+
+
+def _tac_rows(device, setup_name, programs):
+    """T1 against run_plain on random canonical inputs of each program at
+    the prove's size."""
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_tac, torch_tac
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
+
+    setup = stark_setup.read_setup(setup_name)
+    info = setup["starkInfo"]
+    ss = info["starkStruct"]
+    rows = []
+    for k, which in enumerate(programs):
+        code, dom = _tac_program(setup, which)
+        prog = torch_tac.compile_program(code, dom, info, ss["nBits"], ss["nBitsExt"])
+        n = prog.n
+        sections = {"const": random_field((info["nConstants"], n), 300 + k, device)}
+        for i in range(info["nStages"] + (1 if dom == "ext" else 0)):
+            sections[f"cm{i + 1}"] = random_field(
+                (info["mapSectionsN"][f"cm{i + 1}"], n), 310 + 10 * k + i, device)
+        inputs = {"sections": sections, "x": random_field((n,), 320 + k, device),
+                  "Zi": random_field((len(info["boundaries"]), n), 330 + k, device),
+                  "xDivXSubXi": random_field((len(info["openingPoints"]), 3, n), 340 + k,
+                                             device),
+                  "publics": random_field((max(info["nPublics"], 1),), 350 + k, device),
+                  "challenges": random_field((len(info["challengesMap"]), 3), 360 + k, device),
+                  "evals": random_field((max(len(info["evMap"]), 1), 3), 370 + k, device)}
+        got = torch_tac.run_kernel(prog, inputs)
+        want = torch_tac.run_plain(prog, inputs)
+        outs = [(key, got[key], want[key]) for key in ("q", "f") if key in want]
+        outs += [(key, got["cm"][key], v) for key, v in want["cm"].items()]
+        same = (sorted(got["cm"]) == sorted(want["cm"])
+                and all(key in got for key in ("q", "f") if key in want))
+        err = max([exact_err(a, b) for _, a, b in outs] + [0.0 if same else float("inf")])
+        del got, want
+        cost = prog.cost()
+        cap = next(c for c in cuda_tac.SLOT_CAPS if c >= prog.n_slots)
+        _, launch = torch_tac.prepare_kernel(prog, inputs)
+        row = _kernel_row(
+            "tac_eval", TAC_SRC, "pil2_stark_tpu/ops/jax_tac.py:53", err,
+            launch, lambda: torch_tac.run_plain(prog, inputs),
+            cost["gl_muls"] * n * IMAD_PER_GL_MUL,
+            (cost["read_words"] + cost["write_words"]) * n * 8,
+            {"program": which, "dom": dom, "n": n, "instructions": len(code["code"]),
+             "slots": prog.n_slots, "slot_cap": cap, "segments": len(prog.segments),
+             **cost}, setup_name, reps=20 if n <= 1 << 22 else 5)
+        row.update(note=XLA_FUSION, ptxas=_ptxas(f"tac_kernel<{cap}>"))
+        rows.append(row)
+        del inputs, sections, launch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _xdiv_row(device, bits, path):
+    """T2 against its plain version with two random opening points."""
+    import numpy as np
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_tac
+    from pil2_stark_tpu_torch.stark import device as stark_device
+
+    n = 1 << bits
+    x = random_field((n,), 400 + bits, device)
+    xis = [tuple(int(v) for v in np.random.default_rng(410 + o).integers(0, P, 3, dtype=np.uint64))
+           for o in range(2)]
+    err = exact_err(cuda_tac.gl_xdiv(x, xis), stark_device.compute_xdiv_plain(x, xis))
+    row = _kernel_row(
+        "gl_xdiv", TAC_SRC, "pil2_stark_tpu/stark/device.py:349", err,
+        lambda: cuda_tac.gl_xdiv(x, xis), lambda: stark_device.compute_xdiv_plain(x, xis),
+        len(xis) * n * XDIV_GL_MULS * IMAD_PER_GL_MUL, (1 + 3 * len(xis)) * n * 8,
+        {"n": n, "openings": len(xis)}, path, reps=20 if n <= 1 << 22 else 5)
+    row.update(note=XLA_FUSION, ptxas=_ptxas("xdiv_kernel"))
+    del x
+    torch.cuda.empty_cache()
+    return row
 
 
 def _kernel_row(name, src, repl, err, k_fn, p_fn, imads, nbytes, shape, path,
@@ -683,14 +796,14 @@ def main():
         return 2
     try:
         from pil2_stark_tpu_torch.hash import cuda_poseidon
-        from pil2_stark_tpu_torch.ops import cuda_ntt
+        from pil2_stark_tpu_torch.ops import cuda_ntt, cuda_tac
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
 
     device = torch.device("cuda", 0)
     counters = [cuda_ntt.base_rows, cuda_ntt.level_planar, cuda_ntt.base_grid,
-                cuda_poseidon.permute]
+                cuda_poseidon.permute, cuda_tac.tac_eval, cuda_tac.gl_xdiv]
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels(device)
@@ -703,7 +816,8 @@ def main():
     print(card_line(), flush=True)
     names = {"base_rows": "base_rows", "level_planar": "level_planar",
              "base_grid": "base_grid", "poseidon": "permute",
-             "poseidon_variant": "permute_variant", "poseidon_stream": "permute_stream"}
+             "poseidon_variant": "permute_variant", "poseidon_stream": "permute_stream",
+             "tac_eval": "tac_eval", "gl_xdiv": "gl_xdiv"}
     kernels = []
     for r in rows + tool_rows:
         counter = names[r["name"]]

@@ -69,7 +69,6 @@ class ProverCtx:
 
         self.mh = build_mh(ss)
         self.transcript = self.mh.new_transcript()
-        self.fri_pol = {}
 
     # -- host addressing (hints / expr_eval) ---------------------------------
 

@@ -3,8 +3,9 @@ xDivXSubXi, device Merkle trees and the batched query gather.
 
 Counterpart of pil2_stark_tpu/stark/device.py in its single-device planar
 form (``domain_consts`` :206, ``make_evals_executor`` :261,
-``compute_xdiv`` :370, ``DeviceTree`` :383, ``merkelize`` :419 with the
-zero-width uniform trees :405-450, ``gather_group_proofs_multi`` :512).
+``compute_xdiv`` :370, on kernel T2, ``DeviceTree`` :383, ``merkelize``
+:419 with the zero-width uniform trees :405-450,
+``gather_group_proofs_multi`` :512).
 Layouts are planar: a section is (cols, rows), a cubic-extension vector
 (3, N).  Host↔device traffic is limited to witness uploads, roots, the
 evals vector and one query gather per proof.
@@ -21,6 +22,7 @@ from ..field import f3, gl64
 from ..field import torch_gl as gl
 from ..field import torch_f3 as f3g
 from ..hash import poseidon_gl, torch_poseidon
+from ..ops import cuda_tac
 from ..ops import ntt as ntt_ops
 
 
@@ -127,8 +129,16 @@ def _as3(v):
 
 def compute_xdiv(x_ext: torch.Tensor, xi_list) -> torch.Tensor:
     """x/(x − xi·w^opening) per opening over the extended coset
-    (stark_gen_helpers.js:292-323), closed-form cubic inverse; returns
-    (nOpenings, 3, extN)."""
+    (stark_gen_helpers.js:292-323); returns (nOpenings, 3, extN).  A CUDA
+    x_ext runs kernel T2 (ops/cuda_tac.py::gl_xdiv), a CPU one the plain
+    version."""
+    if x_ext.device.type == "cpu":
+        return compute_xdiv_plain(x_ext, xi_list)
+    return cuda_tac.gl_xdiv(x_ext, xi_list)
+
+
+def compute_xdiv_plain(x_ext: torch.Tensor, xi_list) -> torch.Tensor:
+    """T2's plain version: the closed-form cubic inverse on whole columns."""
     outs = []
     x = x_ext[None, :]
     for xi3 in xi_list:

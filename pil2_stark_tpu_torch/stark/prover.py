@@ -9,7 +9,8 @@ split, the DEEP evals, xDivXSubXi, the FRI polynomial, the FRI folds and
 one batched query gather.  The transcript and the control flow stay on the
 host.  The LDEs and the Q split run on kernels B2/B3 (ops/cuda_ntt.py) up
 to 2^24 points and on the row route's B1 above, the FRI folds on B1, every
-Merkle tree on kernel B4 (hash/cuda_poseidon.py).
+Merkle tree on kernel B4 (hash/cuda_poseidon.py), the im-pol, Q and FRI
+programs on T1 (ops/torch_tac.py) and xDivXSubXi on T2 (ops/cuda_tac.py).
 """
 from __future__ import annotations
 
@@ -83,13 +84,12 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
 
     _set_challenges(stark_info["nStages"] + 3, ctx, challenge)
     with timer.phase("friPol"):
-        _compute_fri_pol(ctx)
+        pol = _compute_fri_pol(ctx)
 
     ss = stark_info["starkStruct"]
     fri = FRI(ss, ctx.mh)
     fri_proof = [{}]
     fri_trees = [[ctx.trees[i + 1] for i in range(stark_info["nStages"] + 1)] + [ctx.const_tree]]
-    pol = ctx.fri_pol
     n_steps = len(ss["steps"])
     for step in range(n_steps):
         challenge = ctx.transcript.get_field()
@@ -243,7 +243,9 @@ def _compute_q(ctx):
     # 1/extN of the iNTT folded into the shiftIn^p scale
     scale = gl.from_u64(gl64.powers(shift_in, q_deg, start=n_inv), ctx.device)
     qq1 = ntt_ops.planar_ntt(ctx.dq, ctx.n_bits_ext, True)
+    ctx.dq = None  # nothing reads Q's values after its iNTT
     qq2 = gl.mul(qq1[:, : q_deg * n].reshape(q_dim, q_deg, n), scale[None, :, None])
+    del qq1
     padded = torch.zeros((q_deg * q_dim, ext_n), dtype=torch.int64, device=ctx.device)
     padded[:, :n] = qq2.permute(1, 0, 2).reshape(q_deg * q_dim, n)
     ext = ntt_ops.planar_ntt(padded, ctx.n_bits_ext, False)
@@ -275,12 +277,16 @@ def _compute_evals(ctx):
 
 
 def _compute_fri_pol(ctx):
-    """computeFRIStark (stark_gen_helpers.js:275-335)."""
+    """computeFRIStark (stark_gen_helpers.js:275-335); returns the FRI
+    polynomial (3, extN).  xDivXSubXi is dropped after the FRI program, its
+    only reader, and the context keeps no reference to the polynomial, so
+    the folds free it after the first one."""
     ctx.dxdiv = dev.compute_xdiv(ctx.dx["ext"], [f3.as3(x) for x in _opening_xis(ctx)])
     code = next(e for e in ctx.expressions_info["expressionsCode"]
                 if e["expId"] == ctx.pil_info["friExpId"])
     _run_code(ctx, code["code"], "ext")
-    ctx.fri_pol = ctx.df
+    pol, ctx.df, ctx.dxdiv = ctx.df, None, None
+    return pol
 
 
 def _add_publics_transcript(ctx):

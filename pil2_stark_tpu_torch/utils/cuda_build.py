@@ -33,7 +33,7 @@ SPLITS = {
         f"sq{sq}_ns{ns}_{group}": [f"-DX2_SQ={sq}", f"-DX2_NS={ns}", f"-DX2_PROBES={probes}"]
         for sq in (0, 1) for ns in (1, 2) for probes, group in ((0, "perm"), (1, "probes"))},
 }
-SOURCES = ("ntt", "poseidon", "poseidon_stream") + tuple(
+SOURCES = ("ntt", "poseidon", "poseidon_stream", "tac") + tuple(
     f"{src}.{part}" for src, parts in SPLITS.items() for part in parts)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,8 +12,11 @@ import torch
 
 from pil2_stark_tpu_torch.field import torch_gl
 from pil2_stark_tpu_torch.hash import cuda_poseidon, merkle, torch_poseidon
-from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+from pil2_stark_tpu_torch.ops import cuda_ntt, cuda_tac, ntt, torch_tac
+from pil2_stark_tpu_torch.stark import device as stark_device
+from pil2_stark_tpu_torch.stark import setup as tsetup
 from pil2_stark_tpu_torch.tools import exp_poseidon, exp_stream
+import test_torch_tac_program as tac_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -150,6 +153,108 @@ def test_stream_kernel_equals_plain(card, bits):
     got = exp_stream.build_stream((1 << bits) // exp_stream.BLK)(s)
     assert exp_stream.permute_stream.launches == before + 1
     assert torch.equal(got, cuda_poseidon.permute_plain(s))
+
+
+def _tac_inputs(info, dom, n, seed, device):
+    """Random canonical inputs of a setup's program at n rows."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch_gl.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64), device)
+
+    sections = {"const": rand(info["nConstants"], n)}
+    for i in range(info["nStages"] + (1 if dom == "ext" else 0)):
+        sections[f"cm{i + 1}"] = rand(info["mapSectionsN"][f"cm{i + 1}"], n)
+    return {"sections": sections, "x": rand(n), "Zi": rand(len(info["boundaries"]), n),
+            "xDivXSubXi": rand(len(info["openingPoints"]), 3, n),
+            "publics": rand(max(info["nPublics"], 1)),
+            "challenges": rand(len(info["challengesMap"]), 3), "evals": rand(len(info["evMap"]), 3)}
+
+
+def _tac_equal(got, want):
+    assert sorted(got) == sorted(want) and sorted(got["cm"]) == sorted(want["cm"])
+    for key in ("q", "f"):
+        if key in want:
+            assert torch.equal(got[key].cpu(), want[key].cpu()), key
+    for key, v in want["cm"].items():
+        assert torch.equal(got["cm"][key].cpu(), v.cpu()), key
+
+
+@pytest.mark.parametrize("bits", [3, 8, 16, 21])
+@pytest.mark.parametrize("which", tac_cases.PROGRAMS)
+@pytest.mark.parametrize("name", ["all_8", "fibonacci_6"])
+def test_tac_kernel_equals_plain(card, name, which, bits):
+    """T1 against run_plain on each committed program at 2^bits rows: fewer
+    rows than a warp, one block, 256 blocks, and a grid-stride loop."""
+    setup = tsetup.read_setup(name)
+    info = setup["starkInfo"]
+    code, dom = tac_cases.program(setup, which)
+    extend = info["starkStruct"]["nBitsExt"] - info["starkStruct"]["nBits"]
+    n_bits = bits if dom == "n" else bits - extend
+    prog = torch_tac.compile_program(code, dom, info, n_bits, n_bits + extend)
+    inputs = _tac_inputs(info, dom, 1 << bits, bits, card)
+    before = cuda_tac.tac_eval.launches
+    got = torch_tac.run_kernel(prog, inputs)
+    assert cuda_tac.tac_eval.launches == before + 1
+    _tac_equal(got, torch_tac.run_plain(prog, inputs))
+
+
+def test_tac_segmented_program_on_card(card):
+    code_obj, info, prog = tac_cases.segmented_case(12, 14)
+    inputs = tac_cases.inputs_for(info, 1 << 14, 9, card)
+    before = cuda_tac.tac_eval.launches
+    got = torch_tac.make_executor(code_obj, "ext", info, 12, 14)(inputs)
+    assert cuda_tac.tac_eval.launches == before + len(prog.segments) == before + 3
+    _tac_equal(got, torch_tac.run_plain(prog, inputs))
+
+
+@pytest.mark.parametrize("b_kind", ["column", "scalar"])
+@pytest.mark.parametrize("da,db", tac_cases.MIXED)
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "muladd"])
+def test_tac_mixed_dims_on_card(card, op, da, db, b_kind):
+    code_obj, info, b = tac_cases.mixed_case("mul" if op == "muladd" else op, da, db, b_kind)
+    if op == "muladd":
+        code_obj["code"][0] = {"op": "muladd", "dest": {"type": "tmp", "id": 0},
+                               "src": [{"type": "cm", "id": 0}, b, {"type": "cm", "id": 1}]}
+    prog = torch_tac.compile_program(code_obj, "n", info, 10, 12)
+    inputs = tac_cases.inputs_for(info, 1 << 10, da + db, card)
+    _tac_equal(torch_tac.run_kernel(prog, inputs), torch_tac.run_plain(prog, inputs))
+
+
+def test_tac_refuses_bad_inputs(card):
+    """CPU tensors, a non-contiguous section and a section too short for a
+    dim-3 column."""
+    code_obj, info, prog = tac_cases.segmented_case(12, 14)
+    cpu = torch.zeros((1, 5), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        cuda_tac.tac_eval(cpu, cpu, cpu, 16, 1)
+    inputs = tac_cases.inputs_for(info, 1 << 14, 9, card)
+    cm1 = inputs["sections"]["cm1"]
+    inputs["sections"]["cm1"] = torch.cat([cm1] * 2, dim=1)[:, ::2]
+    with pytest.raises(ValueError):
+        torch_tac.run_kernel(prog, inputs)
+    code_obj, info, _ = tac_cases.mixed_case("mul", 3, 3, "column")
+    prog = torch_tac.compile_program(code_obj, "n", info, 10, 12)
+    inputs = tac_cases.inputs_for(info, 1 << 10, 1, card)
+    inputs["sections"]["cm1"] = inputs["sections"]["cm1"][:4]  # the dim-3 column at row 3 needs 6
+    with pytest.raises(ValueError):
+        torch_tac.run_kernel(prog, inputs)
+
+
+@pytest.mark.parametrize("bits", [10, 20])
+def test_xdiv_kernel_equals_plain(card, bits):
+    """T2 against its plain version; the second opening is x[5] itself, so
+    x − xi is 0 there and both give 0."""
+    x = _rand((1 << bits,), bits, card)
+    xis = [tuple(int(v) for v in np.random.default_rng(bits).integers(0, P, 3, dtype=np.uint64)),
+           (int(torch_gl.to_u64(x[5:6])[0]), 0, 0)]
+    before = cuda_tac.gl_xdiv.launches
+    got = stark_device.compute_xdiv(x, xis)
+    assert cuda_tac.gl_xdiv.launches == before + 1
+    assert torch.equal(got, stark_device.compute_xdiv_plain(x, xis))
+    assert not got[1, :, 5].any() and got[1, :, 6].any()
+    with pytest.raises(ValueError):
+        cuda_tac.gl_xdiv(x.cpu(), xis)
 
 
 def test_ntt_on_card_equals_cpu(card):
