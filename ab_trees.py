@@ -7,10 +7,14 @@ checkout, in the order given.
 
 Each argument is the root of a checkout of this repository (for the parent
 commit, unpack `git archive <commit>` into a directory that .gitignore
-lists).  In each, a fresh process builds that checkout's kernels, times
-its ``cuda_poseidon.permute`` on 2^22 and 2^25 random states with CUDA
-events, then runs its own ``chip_smoke.phase_prove`` on setups/
-fibonacci_22.json (cold and warm prove, verify).  Every run prints one JSON
+lists).  In each, a fresh process builds every kernel source of that
+checkout (``cuda_build.build()``, so no compile falls inside a timed
+prove), times its ``cuda_poseidon.permute`` on 2^22 and 2^25 random
+states with CUDA events, then runs its own ``chip_smoke.phase_prove`` on
+setups/fibonacci_22.json (cold and warm prove, verify) with the launch
+counters of its own ``chip_smoke.prove_counters`` (B1–B4 in checkouts
+older than it); phase_prove fails if one of them never launched in the
+cold prove.  Every run prints one JSON
 line; then one line with the card's name and power limit.  Runs in turns
 (parent, change, change, parent) put the card's drift on both sides.
 Needs a CUDA card; the checkouts' code does the measuring, so both sides
@@ -33,7 +37,7 @@ import chip_smoke as c
 from pil2_stark_tpu_torch.hash import cuda_poseidon
 from pil2_stark_tpu_torch.ops import cuda_ntt
 from pil2_stark_tpu_torch.utils import cuda_build
-cuda_build.build(("ntt", "poseidon"))
+build_s = cuda_build.build()
 dev = torch.device("cuda", 0)
 ms = {{}}
 for bits, reps in ((22, 20), (25, 5)):
@@ -41,9 +45,13 @@ for bits, reps in ((22, 20), (25, 5)):
     ms[bits] = c.cuda_ms(lambda: cuda_poseidon.permute(x), reps)
     del x
     torch.cuda.empty_cache()
-print(json.dumps({{"b4_ms": ms}}), flush=True)
-c.phase_prove(dev, "{SETUP}", [cuda_ntt.base_rows, cuda_ntt.level_planar,
-                                cuda_ntt.base_grid, cuda_poseidon.permute])
+print(json.dumps({{"b4_ms": ms, "build_s": build_s}}), flush=True)
+if hasattr(c, "prove_counters"):
+    counters = c.prove_counters()
+else:
+    counters = [cuda_ntt.base_rows, cuda_ntt.level_planar, cuda_ntt.base_grid,
+                cuda_poseidon.permute]
+c.phase_prove(dev, "{SETUP}", counters)
 """
 
 
@@ -53,11 +61,12 @@ def run_tree(root: str) -> dict:
     if out.returncode != 0:
         raise RuntimeError(f"{root}: exit {out.returncode}\n{out.stderr[-3000:]}")
     lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
-    b4 = next(ln["b4_ms"] for ln in lines if "b4_ms" in ln)
+    b4 = next(ln for ln in lines if "b4_ms" in ln)
     prove = next(ln for ln in lines if ln.get("phase") == "prove_large")
     phases = {k: v for k, v in prove["phases_warm_s"].items()
               if any(p in k for p in PHASES)}
-    return {"tree": os.path.abspath(root), "b4_ms": b4, "verified": prove["verified"],
+    return {"tree": os.path.abspath(root), "b4_ms": b4["b4_ms"],
+            "build_s": b4["build_s"], "verified": prove["verified"],
             "cold_s": prove["cold_s"], "warm_s": prove["warm_s"],
             "phases_warm_s": phases, "peak_device_bytes": prove["peak_device_bytes"],
             "phases_peak_bytes": prove["phases_peak_bytes"], "launches": prove["launches"]}

@@ -71,10 +71,16 @@ IMAD_PER_GL_MUL = 4
 # Poseidon: 1,122 GL multiplies per permutation plus 7 products by the
 # small MDS matrix, each 144 entries × 2 halves multiply-adds.
 POSEIDON_IMAD = 1122 * IMAD_PER_GL_MUL + 7 * 144 * 2
-# T2 per point and opening (csrc/tac.cu xdiv_kernel): 14 products for the
-# norm, 74 for its inverse (64 squarings, 10 products), 3 for the inverse's
-# components and 3 by x.
-XDIV_GL_MULS = 14 + 74 + 3 + 3
+# T2's operations bound counts the GL products x/(x − xi) needs, not the
+# 94 per point and opening that csrc/tac.cu's xdiv_kernel spends.  With
+# x/(x − xi) = 1 + xi·adj(x − xi)/N(x − xi), the norm N is a monic cubic in
+# x and the three components of xi·adj are quadratics in x, all with
+# coefficients the host computes once per opening: x² once per point, then
+# per opening 2 products for N (Horner), 6 for the quadratics, 3 for N's
+# inverse taken in a batch across points (Montgomery's trick), and 3 to
+# scale by it.
+XDIV_GL_MULS_PER_POINT = 1
+XDIV_GL_MULS_PER_OPENING = 2 + 6 + 3 + 3
 TAC_SRC = "pil2_stark_tpu_torch/csrc/tac.cu"
 XLA_FUSION = "counterpart of an XLA fusion, not a pallas_call"
 # the Poseidon experiment tools (tools/exp_poseidon.py, tools/exp_stream.py)
@@ -422,14 +428,6 @@ def _ptxas(label):
     return hit[0] if hit else None
 
 
-def _tac_program(setup, which):
-    info, exprs = setup["starkInfo"], setup["expressionsInfo"]
-    if which == "imPols":
-        return exprs["imPolsCode"][info["nStages"] - 1], "n"
-    exp_id = info["cExpId"] if which == "q" else info["friExpId"]
-    return next(e for e in exprs["expressionsCode"] if e["expId"] == exp_id)["code"], "ext"
-
-
 def _tac_rows(device, setup_name, programs):
     """T1 against run_plain on random canonical inputs of each program at
     the prove's size."""
@@ -443,7 +441,7 @@ def _tac_rows(device, setup_name, programs):
     ss = info["starkStruct"]
     rows = []
     for k, which in enumerate(programs):
-        code, dom = _tac_program(setup, which)
+        code, dom = torch_tac.device_program(info, setup["expressionsInfo"], which)
         prog = torch_tac.compile_program(code, dom, info, ss["nBits"], ss["nBitsExt"])
         n = prog.n
         sections = {"const": random_field((info["nConstants"], n), 300 + k, device)}
@@ -499,7 +497,8 @@ def _xdiv_row(device, bits, path):
     row = _kernel_row(
         "gl_xdiv", TAC_SRC, "pil2_stark_tpu/stark/device.py:349", err,
         lambda: cuda_tac.gl_xdiv(x, xis), lambda: stark_device.compute_xdiv_plain(x, xis),
-        len(xis) * n * XDIV_GL_MULS * IMAD_PER_GL_MUL, (1 + 3 * len(xis)) * n * 8,
+        n * (XDIV_GL_MULS_PER_POINT + len(xis) * XDIV_GL_MULS_PER_OPENING) * IMAD_PER_GL_MUL,
+        (1 + 3 * len(xis)) * n * 8,
         {"n": n, "openings": len(xis)}, path, reps=20 if n <= 1 << 22 else 5)
     row.update(note=XLA_FUSION, ptxas=_ptxas("xdiv_kernel"))
     del x
@@ -781,6 +780,15 @@ def phase_prove(device, setup_name, counters):
     return launches
 
 
+def prove_counters():
+    """The wrappers of every kernel the prove path launches (B1–B4, T1, T2)."""
+    from pil2_stark_tpu_torch.hash import cuda_poseidon
+    from pil2_stark_tpu_torch.ops import cuda_ntt, cuda_tac
+
+    return [cuda_ntt.base_rows, cuda_ntt.level_planar, cuda_ntt.base_grid,
+            cuda_poseidon.permute, cuda_tac.tac_eval, cuda_tac.gl_xdiv]
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -795,15 +803,12 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
-        from pil2_stark_tpu_torch.hash import cuda_poseidon
-        from pil2_stark_tpu_torch.ops import cuda_ntt, cuda_tac
+        counters = prove_counters()
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
 
     device = torch.device("cuda", 0)
-    counters = [cuda_ntt.base_rows, cuda_ntt.level_planar, cuda_ntt.base_grid,
-                cuda_poseidon.permute, cuda_tac.tac_eval, cuda_tac.gl_xdiv]
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels(device)

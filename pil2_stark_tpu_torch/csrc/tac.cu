@@ -44,8 +44,10 @@
 // opening o, out[o][c][i] = (x − xi_o)^-1 · x with the closed-form cubic
 // inverse (field/torch_f3.py::inv) and one base-field inverse by an
 // addition chain for p − 2 (64 squarings, 10 products); 0 maps to 0.
-// Bound: operations (about 94 GL products per point and opening against
-// 8 bytes read and 24 written).
+// That is 94 GL products per point and opening.  The function needs far
+// fewer: the norm and adjugate of x − xi are polynomials in x, and one
+// inverse serves a batch of points, so its bound is by bytes (8 read per
+// point, 24 written per point and opening).
 #include <cuda_runtime.h>
 #include <cstdint>
 

@@ -24,7 +24,6 @@ from ..field import torch_gl as gl
 from ..utils import cuda_build
 
 SLOT_CAPS = (8, 16, 32, 64)  # the slot capacities T1 is compiled for
-MAX_OPENINGS = 16  # T2 takes the opening points as a kernel parameter
 
 
 def _lib():
@@ -82,12 +81,11 @@ tac_eval.launches = 0
 
 def gl_xdiv(x_ext: torch.Tensor, xi_list) -> torch.Tensor:
     """(nOpenings, 3, extN): x/(x − xi) for each opening point xi (a
-    3-tuple of ints) at each point x of x_ext; 0 where x − xi is 0."""
+    3-tuple of ints) at each point x of x_ext; 0 where x − xi is 0.  The
+    kernel refuses more openings than it holds (kMaxOpenings)."""
     _check(x_ext, "gl_xdiv x")
     if x_ext.dim() != 1:
         raise ValueError(f"gl_xdiv: x of shape {tuple(x_ext.shape)}, want (extN,)")
-    if len(xi_list) > MAX_OPENINGS:
-        raise ValueError(f"gl_xdiv: {len(xi_list)} openings, at most {MAX_OPENINGS}")
     n = x_ext.shape[0]
     out = torch.empty((len(xi_list), 3, n), dtype=torch.int64, device=x_ext.device)
     if n == 0 or not xi_list:
@@ -97,7 +95,8 @@ def gl_xdiv(x_ext: torch.Tensor, xi_list) -> torch.Tensor:
     rc = _lib().gl_xdiv(x_ext.data_ptr(), ctypes.cast(xis, ctypes.c_void_p), len(xi_list),
                         out.data_ptr(), n, _stream(x_ext))
     if rc != 0:
-        raise RuntimeError(f"gl_xdiv launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gl_xdiv with {len(xi_list)} openings failed: CUDA error {rc} "
+                           "(csrc/tac.cu kMaxOpenings bounds the openings)")
     gl_xdiv.launches += 1
     return out
 

@@ -107,6 +107,20 @@ class Program:
                 "gl_muls": muls}
 
 
+PROGRAMS = ("imPols", "q", "fri")
+
+
+def device_program(pil_info: dict, expressions_info: dict, which: str):
+    """(code object, dom) of one of a setup's device programs: the last
+    stage's im-pols ("imPols", base domain), the quotient ("q") or the FRI
+    polynomial ("fri"), both on the extended domain."""
+    if which == "imPols":
+        return expressions_info["imPolsCode"][pil_info["nStages"] - 1], "n"
+    exp_id = {"q": pil_info["cExpId"], "fri": pil_info["friExpId"]}[which]
+    code = next(e for e in expressions_info["expressionsCode"] if e["expId"] == exp_id)
+    return code["code"], "ext"
+
+
 def make_executor(code_obj, dom: str, pil_info: dict, n_bits: int, ext_bits: int | None):
     """Returns fn(inputs) for the TAC program `code_obj`.
 

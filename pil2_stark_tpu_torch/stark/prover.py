@@ -163,9 +163,7 @@ def _compute_stage(stage, ctx):
     """computeStage (prover.js:192-231)."""
     q_stage = ctx.pil_info["nStages"] + 1
     if stage == q_stage:
-        code = next(e for e in ctx.expressions_info["expressionsCode"]
-                    if e["expId"] == ctx.pil_info["cExpId"])
-        _run_code(ctx, code["code"], "ext")
+        _run_code(ctx, *torch_tac.device_program(ctx.pil_info, ctx.expressions_info, "q"))
         return
     missing = ctx.stage_symbols_missing(stage)
     while missing > 0:
@@ -175,9 +173,9 @@ def _compute_stage(stage, ctx):
             raise RuntimeError(f"Something went wrong when calculating symbols for stage {stage}")
         missing = updated
     if stage == q_stage - 1:
-        code = ctx.expressions_info["imPolsCode"][stage - 1]
+        code, dom = torch_tac.device_program(ctx.pil_info, ctx.expressions_info, "imPols")
         if code["code"]:
-            _run_code(ctx, code, "n")
+            _run_code(ctx, code, dom)
 
 
 def _run_code(ctx, code_obj, dom):
@@ -282,9 +280,7 @@ def _compute_fri_pol(ctx):
     only reader, and the context keeps no reference to the polynomial, so
     the folds free it after the first one."""
     ctx.dxdiv = dev.compute_xdiv(ctx.dx["ext"], [f3.as3(x) for x in _opening_xis(ctx)])
-    code = next(e for e in ctx.expressions_info["expressionsCode"]
-                if e["expId"] == ctx.pil_info["friExpId"])
-    _run_code(ctx, code["code"], "ext")
+    _run_code(ctx, *torch_tac.device_program(ctx.pil_info, ctx.expressions_info, "fri"))
     pol, ctx.df, ctx.dxdiv = ctx.df, None, None
     return pol
 

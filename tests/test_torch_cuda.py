@@ -181,14 +181,14 @@ def _tac_equal(got, want):
 
 
 @pytest.mark.parametrize("bits", [3, 8, 16, 21])
-@pytest.mark.parametrize("which", tac_cases.PROGRAMS)
+@pytest.mark.parametrize("which", torch_tac.PROGRAMS)
 @pytest.mark.parametrize("name", ["all_8", "fibonacci_6"])
 def test_tac_kernel_equals_plain(card, name, which, bits):
     """T1 against run_plain on each committed program at 2^bits rows: fewer
     rows than a warp, one block, 256 blocks, and a grid-stride loop."""
     setup = tsetup.read_setup(name)
     info = setup["starkInfo"]
-    code, dom = tac_cases.program(setup, which)
+    code, dom = torch_tac.device_program(info, setup["expressionsInfo"], which)
     extend = info["starkStruct"]["nBitsExt"] - info["starkStruct"]["nBits"]
     n_bits = bits if dom == "n" else bits - extend
     prog = torch_tac.compile_program(code, dom, info, n_bits, n_bits + extend)

@@ -15,20 +15,12 @@ from pil2_stark_tpu_torch.stark import setup as tsetup
 P = 0xFFFFFFFF00000001
 
 
-def _program(setup, which):
-    info, exprs = setup["starkInfo"], setup["expressionsInfo"]
-    if which == "imPols":
-        return exprs["imPolsCode"][info["nStages"] - 1], "n"
-    exp_id = info["cExpId"] if which == "q" else info["friExpId"]
-    return next(e for e in exprs["expressionsCode"] if e["expId"] == exp_id)["code"], "ext"
-
-
 @pytest.mark.parametrize("which", ["imPols", "q", "fri"])
 def test_tac_program_matches_jax(which):
     setup = tsetup.read_setup("all_8")
     info = setup["starkInfo"]
     ss = info["starkStruct"]
-    code, dom = _program(setup, which)
+    code, dom = torch_tac.device_program(info, setup["expressionsInfo"], which)
     assert code["code"], which
     n_bits, ext_bits = ss["nBits"], ss["nBitsExt"]
     n = 1 << (ext_bits if dom == "ext" else n_bits)

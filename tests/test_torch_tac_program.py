@@ -14,22 +14,12 @@ from pil2_stark_tpu_torch.stark import setup as tsetup
 
 P = 0xFFFFFFFF00000001
 SETUPS = ["all_8", "all_20", "fibonacci_6", "fibonacci_6_split", "fibonacci_22"]
-PROGRAMS = ["imPols", "q", "fri"]
-
-
-def program(setup, which):
-    """(code object, dom) of one of a setup's three device programs."""
-    info, exprs = setup["starkInfo"], setup["expressionsInfo"]
-    if which == "imPols":
-        return exprs["imPolsCode"][info["nStages"] - 1], "n"
-    exp_id = info["cExpId"] if which == "q" else info["friExpId"]
-    return next(e for e in exprs["expressionsCode"] if e["expId"] == exp_id)["code"], "ext"
 
 
 def _compiled(name, which):
     setup = tsetup.read_setup(name)
     info = setup["starkInfo"]
-    code, dom = program(setup, which)
+    code, dom = torch_tac.device_program(info, setup["expressionsInfo"], which)
     ss = info["starkStruct"]
     return code["code"], torch_tac.compile_program(code, dom, info, ss["nBits"], ss["nBitsExt"])
 
@@ -48,7 +38,7 @@ def _writes_and_reads(code):
     return reads
 
 
-@pytest.mark.parametrize("which", PROGRAMS)
+@pytest.mark.parametrize("which", torch_tac.PROGRAMS)
 @pytest.mark.parametrize("name", SETUPS)
 def test_slot_count_is_peak_of_live_values(name, which):
     """Instruction j reads its sources before it writes its dest, so at j
@@ -64,7 +54,7 @@ def test_slot_count_is_peak_of_live_values(name, which):
     assert len(prog.segments) == 1 and len(prog.ins) == len(code)
 
 
-@pytest.mark.parametrize("which", PROGRAMS)
+@pytest.mark.parametrize("which", torch_tac.PROGRAMS)
 @pytest.mark.parametrize("name", SETUPS)
 def test_no_slot_is_read_after_reuse(name, which):
     """Replays the slot assignment: every tmp read finds in its slot the
