@@ -8,8 +8,10 @@ checkout, in the order given.
 Each argument is the root of a checkout of this repository (for the parent
 commit, unpack `git archive <commit>` into a directory that .gitignore
 lists).  In each, a fresh process builds every kernel source of that
-checkout (``cuda_build.build()``, so no compile falls inside a timed
-prove), times its ``cuda_poseidon.permute`` on 2^22 and 2^25 random
+checkout (``cuda_build.build()``) and, where the checkout generates T1 per
+program, the setup's programs (``torch_tac.build_programs``), so no compile
+falls inside a timed prove; it times its ``cuda_poseidon.permute`` on 2^22
+and 2^25 random
 states with CUDA events, then runs its own ``chip_smoke.phase_prove`` on
 setups/fibonacci_22.json (cold and warm prove, verify) with the launch
 counters of its own ``chip_smoke.prove_counters`` (B1–B4 in checkouts
@@ -36,8 +38,14 @@ sys.path.insert(0, ".")
 import chip_smoke as c
 from pil2_stark_tpu_torch.hash import cuda_poseidon
 from pil2_stark_tpu_torch.ops import cuda_ntt
+from pil2_stark_tpu_torch.ops import torch_tac
+from pil2_stark_tpu_torch.stark import setup as stark_setup
 from pil2_stark_tpu_torch.utils import cuda_build
 build_s = cuda_build.build()
+if hasattr(torch_tac, "build_programs"):
+    data = stark_setup.read_setup("{SETUP}")
+    names = torch_tac.build_programs(data["starkInfo"], data["expressionsInfo"])
+    build_s.update({{"T1 " + w: cuda_build.build_seconds.get(n, 0.0) for w, n in names.items()}})
 dev = torch.device("cuda", 0)
 ms = {{}}
 for bits, reps in ((22, 20), (25, 5)):

@@ -4,18 +4,21 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. build       — compile every CUDA source of the port (one nvcc per
-                   source, all in parallel); registers and spills from
+  1. build       — compile every CUDA source of the port and the T1 kernel
+                   generated for each TAC program of both proves (one nvcc
+                   per source, all in parallel); registers and spills from
                    ptxas, and SASS instructions per permutation by
                    class (cuobjdump) of B4 and of the schedule before it,
                    which X1 still runs;
   2. kernels     — run each kernel at the shapes each prove path gives it
                    (B2 level_planar and B3 base_grid at the widest planar
                    transforms, B4 Poseidon at the leaf batch of each tree,
-                   B1 base_rows at the FRI fold and the two bases of the
-                   2^25 prove, T1 tac_eval on each TAC program of both
-                   proves at its size, T2 gl_xdiv with 2 openings at 2^22
-                   and 2^25) on random values plus near-p corners, and
+                   B1 base_rows at the FRI fold and the two bases of each
+                   2^25 transform of the prove, T1 tac_program on each TAC
+                   program of both proves at its size, with its ptxas
+                   counts, nvcc seconds and SASS per row, T2 gl_xdiv with
+                   2 openings at 2^22 and 2^25) on random values plus
+                   near-p corners, and
                    require output equal bit for bit to its plain PyTorch
                    version; time both;
   3. tools       — the Poseidon experiment tools: kernel X2 (every variant
@@ -39,7 +42,9 @@ Phases, each printing one JSON line:
   7. prove_large — the same for fibonacci at 2^22 rows, nBitsExt 25 (the
                    row route, setups/fibonacci_22.json).
 In each prove phase the kernels' launch counters are zeroed just before the
-cold prove and read just after it, and every kernel must have launched.
+cold prove and read just after it, and every kernel must have launched (T1
+three times, once per program, and T2 once); B1's launches are also
+reported by shape.
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
 card; imports nothing of JAX.
@@ -82,6 +87,8 @@ POSEIDON_IMAD = 1122 * IMAD_PER_GL_MUL + 7 * 144 * 2
 XDIV_GL_MULS_PER_POINT = 1
 XDIV_GL_MULS_PER_OPENING = 2 + 6 + 3 + 3
 TAC_SRC = "pil2_stark_tpu_torch/csrc/tac.cu"
+T1_SRC = "pil2_stark_tpu_torch/ops/tac_codegen.py"  # generates T1 per program, on csrc/f3.cuh
+PROVE_LAUNCHES = {"tac_program": 3, "gl_xdiv": 1}  # T1 once per program, T2 once
 XLA_FUSION = "counterpart of an XLA fusion, not a pallas_call"
 # the Poseidon experiment tools (tools/exp_poseidon.py, tools/exp_stream.py)
 X2_VARIANTS = ("packed", "packed-nosq", "packed-lazy", "packed-dual", "packed-lazy-dual",
@@ -167,9 +174,9 @@ def ptxas_summary(log: str) -> list:
                 stack = int(s.group(1))
         elif (m := re.search(r"Used (\d+) registers", ln)) and name:
             t = re.search(r"variant_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d)E", name)
-            u = re.search(r"tac_kernelILi(\d+)E", name)
+            u = re.search(r"tac_seg(\d+)", name)
             label = (f"variant_kernel<sq={t[1]},lazy={t[2]},probe={t[3]},ns={t[4]}>" if t
-                     else f"tac_kernel<{u[1]}>" if u
+                     else f"tac_seg{u[1]}" if u
                      else "xdiv_kernel" if "xdiv_kernel" in name else name)
             out.append([label, int(m.group(1)), *spill, stack])
             name = None
@@ -199,7 +206,7 @@ SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.
 
 SASS_CLASSES = {"IMAD": "IMAD", "IADD3": "IADD3", "ISETP": "ISETP+SEL", "SEL": "ISETP+SEL",
                 "MOV": "move", "LDC": "const load", "ULDC": "const load",
-                "LDL": "spill", "STL": "spill"}
+                "LDL": "spill", "STL": "spill", "LDG": "global load", "STG": "global store"}
 
 
 def sass_class(op: str) -> str:
@@ -209,14 +216,16 @@ def sass_class(op: str) -> str:
 
 
 def sass_counts(lib_name: str, kernel: str, trips: list, outer: bool = False) -> dict:
-    """SASS instructions of `kernel` in a built library, by class, and per
-    permutation: each instruction inside a loop (a backward branch) counts
+    """SASS instructions of `kernel` in a built library (a name of
+    cuda_build.library_path), by class, and per permutation: each
+    instruction inside a loop (a backward branch) counts
     once per trip of every round loop around it, the round loops (the
     len(trips) largest, in order of their first address) taking `trips`
     and any other loop one.  One thread of B4 makes one permutation, so
     its count per thread is the count per permutation.  With `outer`, only
     the instructions of one trip of the loop around all others count: X1's
-    stage loop, in which each thread permutes one state."""
+    stage loop, in which each thread permutes one state, or T1's
+    grid-stride loop, one trip per row (no `trips`)."""
     from pil2_stark_tpu_torch.utils import cuda_build
 
     tool = cuobjdump()
@@ -252,7 +261,7 @@ def sass_counts(lib_name: str, kernel: str, trips: list, outer: bool = False) ->
         res["per_permutation"] = None
         res["why"] = f"{len(loops)} loops, expected {len(trips)}"
         return res
-    rounds = sorted(sorted(loops, key=size.get)[-len(trips):])
+    rounds = sorted(sorted(loops, key=size.get)[len(loops) - len(trips):])
     per_class: dict = {}
     for addr, op, _ in insns:
         w = 1
@@ -278,12 +287,32 @@ def exact_err(a, b) -> float:
     return 0.0 if torch.equal(a, b) else max_abs_err(a, b)
 
 
+def tac_programs():
+    """{(setup, program): (Program, library name)} of every TAC program the
+    two proves run, compiled at the setup's size."""
+    from pil2_stark_tpu_torch.ops import tac_codegen, torch_tac
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    out = {}
+    for name in (f"all_{N_BITS}", LARGE_SETUP):
+        data = stark_setup.read_setup(name)
+        for which, prog in torch_tac.setup_programs(data["starkInfo"],
+                                                    data["expressionsInfo"]).items():
+            out[(name, which)] = (prog, cuda_build.add_generated(
+                tac_codegen.generate(prog).source))
+    return out
+
+
 def phase_build():
     from pil2_stark_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    times = cuda_build.build()
+    tac = tac_programs()
+    times = cuda_build.build(list(cuda_build.SOURCES) + [lib for _, lib in tac.values()])
     ptxas = {name: ptxas_summary(cuda_build.build_log(name)) for name in cuda_build.SOURCES}
+    ptxas.update({f"T1 {s}.{w}": ptxas_summary(cuda_build.build_log(lib))
+                  for (s, w), (_, lib) in tac.items()})
     # B4, and the schedule before poseidon_fast.cuh as X1 runs it: one trip
     # of X1's stage loop is one permutation per thread
     sass = {"poseidon": sass_counts("poseidon", "poseidon_kernel", ROUND_TRIPS),
@@ -392,17 +421,18 @@ def _poseidon_row(device, batch, path):
 
 def _b1_rows(device):
     """B1 at the shapes of the LARGE_SETUP prove: the first FRI fold (8 rows,
-    3·2^22 lanes, inverse) and the two bases of a 3-column 2^25 transform
-    (2^12 rows × 3·2^13 lanes, 2 rows × 3·2^24 lanes)."""
+    3·2^22 lanes, inverse) and the two bases of the 2^25 transforms of 3, 2
+    and 1 columns (2^12 rows × cols·2^13 lanes, 2 rows × cols·2^24 lanes)."""
     import torch
 
     from pil2_stark_tpu_torch.ops import cuda_ntt
 
     rows = []
     fold_bits = LARGE_BITS - 22
-    for bits, lanes, inverse in ((fold_bits, 3 << 22, True),
-                                 (12, LARGE_COLS << (LARGE_BITS - 12), False),
-                                 (1, LARGE_COLS << (LARGE_BITS - 1), False)):
+    shapes = [(fold_bits, 3 << 22, True)]
+    for cols in (LARGE_COLS, 2, 1):
+        shapes += [(12, cols << (LARGE_BITS - 12), False), (1, cols << (LARGE_BITS - 1), False)]
+    for bits, lanes, inverse in shapes:
         n = 1 << bits
         x = random_field((n, lanes), 200 + bits, device)
         err = max_abs_err(cuda_ntt.base_rows(x, bits, inverse),
@@ -419,22 +449,25 @@ def _b1_rows(device):
     return rows
 
 
-def _ptxas(label):
+def _ptxas(label, lib="tac"):
     """[registers, spill stores, spill loads, stack bytes] of a kernel of
-    csrc/tac.cu, from its build log."""
+    csrc/tac.cu (or of a generated library), from its build log."""
     from pil2_stark_tpu_torch.utils import cuda_build
 
-    hit = [e[1:] for e in ptxas_summary(cuda_build.build_log("tac")) if e[0] == label]
+    hit = [e[1:] for e in ptxas_summary(cuda_build.build_log(lib)) if e[0] == label]
     return hit[0] if hit else None
 
 
 def _tac_rows(device, setup_name, programs):
-    """T1 against run_plain on random canonical inputs of each program at
-    the prove's size."""
+    """T1, the kernel generated for each program, against run_plain on
+    random canonical inputs of each program at the prove's size; with its
+    ptxas counts and nvcc seconds from its own build, and its SASS per row
+    (one trip of the grid-stride loop)."""
     import torch
 
-    from pil2_stark_tpu_torch.ops import cuda_tac, torch_tac
+    from pil2_stark_tpu_torch.ops import tac_codegen, torch_tac
     from pil2_stark_tpu_torch.stark import setup as stark_setup
+    from pil2_stark_tpu_torch.utils import cuda_build
 
     setup = stark_setup.read_setup(setup_name)
     info = setup["starkInfo"]
@@ -443,6 +476,8 @@ def _tac_rows(device, setup_name, programs):
     for k, which in enumerate(programs):
         code, dom = torch_tac.device_program(info, setup["expressionsInfo"], which)
         prog = torch_tac.compile_program(code, dom, info, ss["nBits"], ss["nBitsExt"])
+        gen = tac_codegen.generate(prog)
+        lib = cuda_build.add_generated(gen.source)
         n = prog.n
         sections = {"const": random_field((info["nConstants"], n), 300 + k, device)}
         for i in range(info["nStages"] + (1 if dom == "ext" else 0)):
@@ -464,17 +499,24 @@ def _tac_rows(device, setup_name, programs):
         err = max([exact_err(a, b) for _, a, b in outs] + [0.0 if same else float("inf")])
         del got, want
         cost = prog.cost()
-        cap = next(c for c in cuda_tac.SLOT_CAPS if c >= prog.n_slots)
         _, launch = torch_tac.prepare_kernel(prog, inputs)
         row = _kernel_row(
-            "tac_eval", TAC_SRC, "pil2_stark_tpu/ops/jax_tac.py:53", err,
+            "tac_program", T1_SRC, "pil2_stark_tpu/ops/jax_tac.py:53", err,
             launch, lambda: torch_tac.run_plain(prog, inputs),
             cost["gl_muls"] * n * IMAD_PER_GL_MUL,
             (cost["read_words"] + cost["write_words"]) * n * 8,
             {"program": which, "dom": dom, "n": n, "instructions": len(code["code"]),
-             "slots": prog.n_slots, "slot_cap": cap, "segments": len(prog.segments),
-             **cost}, setup_name, reps=20 if n <= 1 << 22 else 5)
-        row.update(note=XLA_FUSION, ptxas=_ptxas(f"tac_kernel<{cap}>"))
+             "live_values": prog.n_slots, "segments": len(prog.segments),
+             "columns": gen.n_cols, "scalars": gen.n_scalars, **cost},
+            setup_name, reps=20 if n <= 1 << 22 else 5)
+        sass = sass_counts(lib, "tac_seg0", [], outer=True)
+        row.update(note=XLA_FUSION, ratio=row["ms"] / row["bound_ms"], library=lib,
+                   ptxas={f"tac_seg{s}": _ptxas(f"tac_seg{s}", lib)
+                          for s in range(len(prog.segments))},
+                   nvcc_s=cuda_build.build_seconds.get(lib),
+                   sass_per_row=sass.get("per_permutation"),
+                   sass_per_row_by_class=sass.get("per_permutation_by_class"),
+                   sass_static=sass.get("static"))
         rows.append(row)
         del inputs, sections, launch
         torch.cuda.empty_cache()
@@ -730,6 +772,7 @@ def phase_prove(device, setup_name, counters):
     import torch
 
     from pil2_stark_tpu_torch.models import fibonacci, gadgets
+    from pil2_stark_tpu_torch.ops import cuda_ntt
     from pil2_stark_tpu_torch.stark import prover, setup as stark_setup, verifier
 
     data = stark_setup.read_setup(setup_name)
@@ -752,8 +795,12 @@ def phase_prove(device, setup_name, counters):
 
     for c in counters:
         c.launches = 0
+    cuda_ntt.base_rows.shapes.clear()  # B1's launches by (rows, lanes)
     res, cold = run()
     launches = {c.__name__: c.launches for c in counters}
+    b1 = {f"{n}x{lanes}": k for (n, lanes), k in sorted(cuda_ntt.base_rows.shapes.items())}
+    miscounted = {k: (launches[k], v) for k, v in PROVE_LAUNCHES.items()
+                  if k in launches and launches[k] != v}
     res_warm, warm = run()
     peak = max(res_warm["peakBytes"].values())  # every allocation happens inside a phase
     same = canon(res["proof"]) == canon(res_warm["proof"])
@@ -769,7 +816,7 @@ def phase_prove(device, setup_name, counters):
           "witness_build_s": t_build, "load_setup_s": t_setup, "verify_s": t_verify,
           "peak_device_bytes": peak, "phases_warm_s": res_warm["timings"],
           "phases_cold_s": res["timings"], "phases_peak_bytes": res_warm["peakBytes"],
-          "launches": launches})
+          "launches": launches, "b1_launches_by_shape": b1})
     del setup, res, res_warm
     torch.cuda.empty_cache()
     if not (ok and same):
@@ -777,6 +824,9 @@ def phase_prove(device, setup_name, counters):
     zero = [k for k, v in launches.items() if v == 0]
     if zero:
         raise AssertionError(f"kernels never launched on the {setup_name} prove: {zero}")
+    if miscounted:
+        raise AssertionError(f"launches (counted, expected) on the {setup_name} prove: "
+                             f"{miscounted}")
     return launches
 
 
@@ -786,7 +836,7 @@ def prove_counters():
     from pil2_stark_tpu_torch.ops import cuda_ntt, cuda_tac
 
     return [cuda_ntt.base_rows, cuda_ntt.level_planar, cuda_ntt.base_grid,
-            cuda_poseidon.permute, cuda_tac.tac_eval, cuda_tac.gl_xdiv]
+            cuda_poseidon.permute, cuda_tac.tac_program, cuda_tac.gl_xdiv]
 
 
 def card_line():
@@ -822,7 +872,7 @@ def main():
     names = {"base_rows": "base_rows", "level_planar": "level_planar",
              "base_grid": "base_grid", "poseidon": "permute",
              "poseidon_variant": "permute_variant", "poseidon_stream": "permute_stream",
-             "tac_eval": "tac_eval", "gl_xdiv": "gl_xdiv"}
+             "tac_program": "tac_program", "gl_xdiv": "gl_xdiv"}
     kernels = []
     for r in rows + tool_rows:
         counter = names[r["name"]]

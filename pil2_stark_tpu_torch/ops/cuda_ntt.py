@@ -217,7 +217,9 @@ def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"gl_base_rows launch failed: CUDA error {rc}")
     base_rows.launches += 1
+    base_rows.shapes[(1 << bits, lanes)] = base_rows.shapes.get((1 << bits, lanes), 0) + 1
     return out
 
 
 base_rows.launches = 0
+base_rows.shapes = {}  # (rows, lanes) -> launches

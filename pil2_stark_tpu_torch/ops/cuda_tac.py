@@ -1,18 +1,19 @@
-"""Kernels T1 and T2 (csrc/tac.cu): the constraint and FRI arithmetic of
-the prove.
+"""Kernels T1 and T2: the constraint and FRI arithmetic of the prove.
 
-  * ``tac_eval`` (T1) evaluates one segment of a compiled TAC program
-    (ops/torch_tac.py) for every row of its domain.  It is the counterpart
-    of the XLA fusion the JAX package traces in jax_tac.make_executor
+  * ``tac_program`` (T1) runs the kernels ops/tac_codegen.py generates for
+    one compiled TAC program (ops/torch_tac.py), one per segment, over every
+    row of its domain.  T1 is the counterpart of the XLA computation the
+    JAX package traces and jits per program in jax_tac.make_executor
     (pil2_stark_tpu/ops/jax_tac.py:53), not of a ``pallas_call``; its plain
     version is ``torch_tac.run_plain``.
-  * ``gl_xdiv`` (T2) computes the xDivXSubXi table x/(x − xi_o) over the
-    extended coset, the counterpart of the jitted elementwise program
-    pil2_stark_tpu/stark/device.py:349 ``_jit_xdiv``; its plain version is
-    ``stark/device.py::compute_xdiv_plain``.
+  * ``gl_xdiv`` (T2, csrc/tac.cu) computes the xDivXSubXi table
+    x/(x − xi_o) over the extended coset, the counterpart of the jitted
+    elementwise program pil2_stark_tpu/stark/device.py:349 ``_jit_xdiv``;
+    its plain version is ``stark/device.py::compute_xdiv_plain``.
 
-Both launch only on CUDA tensors (building the library at first use) and
-raise on anything else; each counts its launches in ``<wrapper>.launches``.
+Both launch only on CUDA tensors (building their library at first use)
+and raise on anything else; each counts its kernel launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -23,15 +24,13 @@ import torch
 from ..field import torch_gl as gl
 from ..utils import cuda_build
 
-SLOT_CAPS = (8, 16, 32, 64)  # the slot capacities T1 is compiled for
+_program_libs: dict = {}  # generated source -> its loaded, checked library
 
 
 def _lib():
     lib = cuda_build.lib("tac")
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tac_eval.argtypes = [vp, ci, vp, ci, vp, ci, cll, ci, vp]
-        lib.tac_eval.restype = ci
         lib.gl_xdiv.argtypes = [vp, vp, ci, vp, cll, vp]
         lib.gl_xdiv.restype = ci
         lib._typed = True
@@ -50,33 +49,53 @@ def _check(t: torch.Tensor, what: str, device=None):
                          f"contiguous={t.is_contiguous()}")
 
 
-def tac_eval(words: torch.Tensor, cols: torch.Tensor, scalars: torch.Tensor, n: int,
-             n_slots: int) -> None:
-    """Run the instructions `words` ((k, 5) int64, torch_tac's encoding) on
-    rows 0..n-1.  `cols` holds the device address of every column the
-    instructions name (written buffers included), `scalars` the scalar
-    table.  Writes go to the addresses in `cols`."""
-    _check(words, "tac_eval words")
-    device = words.device
-    _check(cols, "tac_eval cols", device)
-    _check(scalars, "tac_eval scalars", device)
-    if words.dim() != 2 or words.shape[1] != 5:
-        raise ValueError(f"tac_eval: words of shape {tuple(words.shape)}, want (k, 5)")
-    cap = next((c for c in SLOT_CAPS if c >= n_slots), None)
-    if cap is None:
-        raise ValueError(f"tac_eval: {n_slots} slots, the kernel holds at most {SLOT_CAPS[-1]}")
-    if not 1 <= n < 1 << 32:
-        raise ValueError(f"tac_eval: {n} rows")
-    if words.shape[0] == 0:
-        return
-    rc = _lib().tac_eval(words.data_ptr(), words.shape[0], cols.data_ptr(), cols.numel(),
-                         scalars.data_ptr(), scalars.numel(), n, cap, _stream(words))
+def program_library(gen) -> ctypes.CDLL:
+    """The built library of a generated program (tac_codegen.Generated),
+    checked against the layout the generator stated."""
+    lib = _program_libs.get(gen.source)
+    if lib is None:
+        lib = cuda_build.lib(cuda_build.add_generated(gen.source))
+        vp, cll = ctypes.c_void_p, ctypes.c_longlong
+        lib.tac_run.argtypes = [vp, vp, vp, cll, vp]
+        lib.tac_run.restype = ctypes.c_int
+        lib.tac_layout.argtypes = [vp]
+        lib.tac_layout.restype = ctypes.c_int
+        layout = (ctypes.c_longlong * 5)()
+        lib.tac_layout(ctypes.cast(layout, vp))
+        want = (gen.n_cols, len(gen.shifts), gen.n_base_scalars, gen.n_scalars, gen.n_segments)
+        if tuple(layout) != want:
+            raise RuntimeError(f"T1 library {gen.digest}: layout {tuple(layout)}, want {want}")
+        _program_libs[gen.source] = lib
+    return lib
+
+
+def tac_program(gen, cols, scalars: torch.Tensor, n: int) -> None:
+    """Run the generated program `gen` (tac_codegen.Generated) on rows
+    0..n-1: `cols` holds the device address of every column it names
+    (written buffers included), `scalars` the scalar table (its first
+    ``gen.n_base_scalars`` entries; the launch fills the rest in place).
+    Writes go to the addresses in `cols`.  One kernel launch per segment,
+    after one single-thread launch for the table when it derives values."""
+    _check(scalars, "tac_program scalars")
+    if len(cols) != gen.n_cols:
+        raise ValueError(f"tac_program: {len(cols)} column addresses, the program names "
+                         f"{gen.n_cols}")
+    if scalars.numel() != gen.n_scalars:
+        raise ValueError(f"tac_program: a table of {scalars.numel()} scalars, the program "
+                         f"takes {gen.n_scalars}")
+    if not 1 <= n < 1 << 40:
+        raise ValueError(f"tac_program: {n} rows")
+    lib = program_library(gen)
+    c_cols = (ctypes.c_longlong * max(len(cols), 1))(*cols)
+    c_shifts = (ctypes.c_longlong * max(len(gen.shifts), 1))(*gen.shifts)
+    rc = lib.tac_run(ctypes.cast(c_cols, ctypes.c_void_p), ctypes.cast(c_shifts, ctypes.c_void_p),
+                     scalars.data_ptr(), n, _stream(scalars))
     if rc != 0:
-        raise RuntimeError(f"tac_eval launch failed: CUDA error {rc}")
-    tac_eval.launches += 1
+        raise RuntimeError(f"tac_program {gen.digest} launch failed: CUDA error {rc}")
+    tac_program.launches += gen.n_segments
 
 
-tac_eval.launches = 0
+tac_program.launches = 0
 
 
 def gl_xdiv(x_ext: torch.Tensor, xi_list) -> torch.Tensor:

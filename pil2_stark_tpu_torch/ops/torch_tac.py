@@ -1,6 +1,8 @@
 """Device TAC executor: compiles a setup's TAC program once, then evaluates
-it row by row on the card (kernel T1, ops/cuda_tac.py) or, for CPU tensors,
-whole columns at a time with torch ops (``run_plain``, T1's plain version).
+it row by row on the card (kernel T1: a CUDA kernel generated from the
+program by ops/tac_codegen.py, launched by ops/cuda_tac.py) or, for CPU
+tensors, whole columns at a time with torch ops (``run_plain``, T1's plain
+version).
 
 Counterpart of pil2_stark_tpu/ops/jax_tac.py (``make_executor`` :53,
 ``pack_inputs`` :220) in its planar form: a section is a (cols, rows) int64
@@ -36,7 +38,8 @@ import torch
 from ..field import gl64
 from ..field import torch_gl as gl
 from ..field import torch_f3 as f3g
-from . import cuda_tac
+from ..utils import cuda_build
+from . import cuda_tac, tac_codegen
 
 OPS = ("copy", "add", "sub", "mul", "muladd")
 _ARITY = {"copy": 1, "add": 2, "sub": 2, "mul": 2, "muladd": 3}
@@ -83,8 +86,8 @@ class Program:
     buffers: list
     numbers: list
     scalar_groups: dict  # group -> (offset in the scalar table, entries, words each)
-    words: np.ndarray  # (len(ins), 5) int64, the kernel's encoding of `ins`
-    _device: dict = dataclasses.field(default_factory=dict)  # device -> (words, numbers)
+    # T1's generated source ("generated") and the numbers on each device
+    _kernel: dict = dataclasses.field(default_factory=dict)
 
     def cost(self) -> dict:
         """Per row: base-field words read from distinct input columns,
@@ -128,8 +131,9 @@ def make_executor(code_obj, dom: str, pil_info: dict, n_bits: int, ext_bits: int
              "x": (N,), "Zi": (nBoundaries, extN), "xDivXSubXi": (nOpenings, 3, extN),
              "publics": (nPublics,), "challenges": (nChallenges, 3), "evals": (nEvals, 3)}
     Output: {"q": (d, N), "f": (3, N), "cm": {(section, offset, dim): (d, N)}}
-    for whatever the program writes.  CUDA inputs run kernel T1, CPU
-    inputs its plain version.
+    for whatever the program writes.  CUDA inputs run kernel T1 (its build
+    at first use, unless build_programs made it), CPU inputs its plain
+    version.
     """
     prog = compile_program(code_obj, dom, pil_info, n_bits, ext_bits)
 
@@ -327,7 +331,7 @@ def _compile(code, dom, pil_info, n_bits, ext_bits) -> Program:
                 col_dims[o[1]] = max(col_dims[o[1]], o[2])
     return Program(n=n, ins=ins, segments=segments, n_slots=n_slots, columns=columns,
                    col_dims=col_dims, buffers=buffers, numbers=numbers,
-                   scalar_groups=groups, words=_encode(ins, n))
+                   scalar_groups=groups)
 
 
 def _place_scalar(s, groups):
@@ -336,38 +340,6 @@ def _place_scalar(s, groups):
     group, i = s[1]
     off, _, width = groups[group]
     return ("scalar", off + width * i, s[2])
-
-
-# ---------------------------------------------------------------------------
-# the kernel's encoding (csrc/tac.cu): five words per instruction
-
-_KIND = {"slot": 0, "col": 1, "scalar": 2}
-_NONE = 3
-
-
-def _encode_operand(o) -> int:
-    kind = _KIND[o[0]]
-    if o[0] == "slot":
-        idx, d, shift = o[1], (o[2] if len(o) > 2 else 3), 0
-    elif o[0] == "col":
-        idx, d, shift = o[1], o[2], o[3]
-    else:
-        idx, d, shift = o[1], o[2], 0
-    if idx >= 1 << 24:
-        raise ValueError("operand index out of range")
-    return kind | (d << 2) | (idx << 8) | (shift << 32)
-
-
-def _encode(ins, n) -> np.ndarray:
-    if n >= 1 << 32:
-        raise ValueError("the kernel takes fewer than 2^32 rows")
-    words = np.full((len(ins), 5), _NONE, dtype=np.uint64)
-    for k, (op, rd, dest, srcs) in enumerate(ins):
-        words[k, 0] = OPS.index(op) | (rd << 8)
-        words[k, 1] = _encode_operand(dest)
-        for i, s in enumerate(srcs):
-            words[k, 2 + i] = _encode_operand(s)
-    return words.view(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -491,14 +463,29 @@ def prepare_kernel(prog: Program, inputs):
     """(written buffers, a function that launches every segment): the
     column addresses, scalar table and output buffers T1 needs, made once
     so that the launches can be timed alone."""
+    gen, bufs, ptrs, table = kernel_args(prog, inputs)
+
+    def launch():
+        cuda_tac.tac_program(gen, ptrs, table, prog.n)
+
+    return bufs, launch
+
+
+def kernel_args(prog: Program, inputs):
+    """(generated program, written buffers, column addresses, scalar
+    table): what a run of T1 takes, on the inputs' device.  The addresses
+    are those of every column the program names, in ``prog.columns``
+    order, each checked against the rows the program reads; the table has
+    room for the values the generated code derives from it."""
     device = inputs["x"].device
     n = prog.n
-    words, numbers = prog._device.get(str(device), (None, None))
-    if words is None:
-        words = torch.from_numpy(prog.words.copy()).to(device)
+    gen = tac_codegen.generate(prog)
+    numbers = prog._kernel.get(str(device))
+    if numbers is None:
         numbers = torch.tensor(prog.numbers, dtype=torch.int64, device=device)
-        prog._device[str(device)] = (words, numbers)
+        prog._kernel[str(device)] = numbers
     table = _scalar_table(prog, inputs, numbers)
+    table = torch.cat([table, table.new_zeros(gen.n_scalars - table.numel())])
     bufs = [torch.empty((d, n), dtype=torch.int64, device=device) for _, d in prog.buffers]
     ptrs = []
     for ref, d in zip(prog.columns, prog.col_dims):
@@ -508,13 +495,28 @@ def prepare_kernel(prog: Program, inputs):
         t, row = _column_source(ref, inputs)
         _check_column(t, row, d, n, device, str(ref))
         ptrs.append(t.data_ptr() + row * n * 8)
-    cols = torch.tensor(np.array(ptrs, dtype=np.uint64).view(np.int64), device=device)
+    return gen, bufs, ptrs, table
 
-    def launch():
-        for start, end in prog.segments:
-            cuda_tac.tac_eval(words[start:end], cols, table, n, prog.n_slots)
 
-    return bufs, launch
+def setup_programs(stark_info: dict, expressions_info: dict) -> dict:
+    """{which: Program} of a setup's device programs that have code."""
+    ss = stark_info["starkStruct"]
+    progs = {}
+    for which in PROGRAMS:
+        code, dom = device_program(stark_info, expressions_info, which)
+        if code["code"]:
+            progs[which] = compile_program(code, dom, stark_info, ss["nBits"], ss["nBitsExt"])
+    return progs
+
+
+def build_programs(stark_info: dict, expressions_info: dict) -> dict:
+    """Generate and build T1 for each of a setup's device programs, all
+    nvcc runs in parallel, so that no prove waits on a compile.  Returns
+    {which: library name}; a failed build raises with nvcc's output."""
+    names = {which: cuda_build.add_generated(tac_codegen.generate(prog).source)
+             for which, prog in setup_programs(stark_info, expressions_info).items()}
+    cuda_build.build(names.values())
+    return names
 
 
 # ---------------------------------------------------------------------------

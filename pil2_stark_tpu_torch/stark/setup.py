@@ -5,7 +5,9 @@ emits (``starkInfo``, ``expressionsInfo``, ``verifierInfo``, committed as
 JSON under ``setups/``) the way the reference's prover takes
 ``starkinfo.json``, plus the fixed columns, and builds the constant tree on
 the device with its own LDE and Merkle code — the non-compiler half of
-pil2_stark_tpu/stark/setup.py:30-45.
+pil2_stark_tpu/stark/setup.py:30-45.  On a CUDA device it also builds
+kernel T1 for the setup's TAC programs (ops/torch_tac.build_programs), so
+that no prove waits on nvcc.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 
 from ..field import torch_gl as gl
 from ..ops import ntt as ntt_ops
+from ..ops import torch_tac
 from . import device as dev
 from .context import resolve_device
 
@@ -33,8 +36,11 @@ def load_setup(stark_info: dict, expressions_info: dict, verifier_info: dict,
                const_pols: np.ndarray, device=None) -> dict:
     """const_pols: (N, nConstants) u64.  Returns {starkInfo, expressionsInfo,
     verifierInfo, fixedPols, constTree, constRoot}; the const tree is a
-    DeviceTree on `device` (None means "cuda")."""
+    DeviceTree on `device` (None means "cuda").  On CUDA, T1 is built for
+    the im-pol, Q and FRI programs first."""
     device = resolve_device(device)
+    if device.type == "cuda":
+        torch_tac.build_programs(stark_info, expressions_info)
     ss = stark_info["starkStruct"]
     n_bits, n_bits_ext = ss["nBits"], ss["nBitsExt"]
     n_constants = len(stark_info["constPolsMap"])

@@ -1,4 +1,4 @@
-"""Builds the port's CUDA sources (``csrc/*.cu``) into shared libraries.
+"""Builds the port's CUDA sources into shared libraries.
 
 Each source has a plain C interface and is compiled on its own by ``nvcc``
 into ``_build/<name>-<digest>.so``, then loaded with ctypes.  A source
@@ -6,9 +6,16 @@ whose template instantiations take one ``nvcc`` too long is split: it is
 compiled several times, each time with other ``-D`` defines that select
 a share of its instantiations, into libraries named ``<source>.<part>``.
 The digest covers the source, its defines and every header under
-``csrc/``, so an edited source rebuilds and an unchanged one is reused.  A
-library is built at its first use; ``build()`` starts every missing one at
-once (one nvcc process per library, run in parallel).  A failed build
+``csrc/``, so an edited source rebuilds and an unchanged one is reused.
+
+Generated sources (kernel T1, one per compiled TAC program, written by
+ops/tac_codegen.py) go to ``_build/gen/<digest>.cu`` and build into
+``_build/gen/<digest>.so``; their digest covers the text, every header
+under ``csrc/`` and the flags, so programs with the same text share a
+library, across processes too.
+
+A library is built at its first use; ``build()`` starts every missing one
+at once (one nvcc process per library, run in parallel).  A failed build
 raises with the compiler's output.
 """
 from __future__ import annotations
@@ -25,6 +32,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+GEN_DIR = BUILD_DIR / "gen"
 # poseidon_variants.cu holds 20 instantiations of the X2 kernel: one nvcc
 # over all of them takes about 150 s, over the 5 of one sq/dual choice up
 # to 73 s (the dual ones), so each part holds 2 or 3.
@@ -49,6 +57,7 @@ def _source(name: str) -> tuple[Path, list[str]]:
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}  # wall seconds of each compile this process ran
 
 
 def nvcc() -> str:
@@ -61,25 +70,64 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _headers_digest(h) -> None:
+    for path in sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+
+
 def _digest(name: str) -> str:
     src, defines = _source(name)
     h = hashlib.sha256()
-    for path in [src] + sorted(CSRC.glob("*.cuh")):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    _headers_digest(h)
     h.update(" ".join(NVCC_FLAGS + defines).encode())
     return h.hexdigest()[:16]
 
 
+def generated_digest(text: str) -> str:
+    """The digest of a generated source: its text, every csrc header and
+    the flags."""
+    h = hashlib.sha256(text.encode())
+    _headers_digest(h)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
+    """The library of csrc/<name>.cu (or a part of a split source), or of
+    a generated source when `name` is ``gen/<digest>``."""
+    if name.startswith("gen/"):
+        return GEN_DIR / f"{name[4:]}.so"
     return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
+def _log_path(name: str) -> Path:
+    if name.startswith("gen/"):
+        return GEN_DIR / f"{name[4:]}.log"
+    return BUILD_DIR / f"{name}.log"
+
+
+def add_generated(text: str) -> str:
+    """Write a generated source to _build/gen (once) and return its
+    library name, ``gen/<digest>``."""
+    digest = generated_digest(text)
+    path = GEN_DIR / f"{digest}.cu"
+    if not path.exists():
+        GEN_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, path)
+    return f"gen/{digest}"
+
+
 def build(names=SOURCES) -> dict[str, float]:
-    """Compile every missing library in `names` in parallel; returns the
-    wall seconds of each compile (0.0 for one already built)."""
+    """Compile every missing library in `names` (generated ones named by
+    add_generated) in parallel; returns the wall seconds of each compile
+    (0.0 for one already built)."""
     times = {name: 0.0 for name in names if library_path(name).exists()}
-    missing = [name for name in names if name not in times]
+    missing = [name for name in dict.fromkeys(names) if name not in times]
     if missing:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         compiler = nvcc()
@@ -87,8 +135,11 @@ def build(names=SOURCES) -> dict[str, float]:
     for name in missing:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(BUILD_DIR / f"{name}.log", "w")
-        src, defines = _source(name)
+        log = open(_log_path(name), "w")
+        if name.startswith("gen/"):
+            src, defines = GEN_DIR / f"{name[4:]}.cu", []
+        else:
+            src, defines = _source(name)
         cmd = [compiler, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                        time.perf_counter(), tmp, out, log)
@@ -100,7 +151,7 @@ def build(names=SOURCES) -> dict[str, float]:
                 continue
             del procs[name]
             log.close()
-            times[name] = time.perf_counter() - t0
+            times[name] = build_seconds[name] = time.perf_counter() - t0
             if rc != 0:
                 failed.append(name)
             else:
@@ -108,15 +159,14 @@ def build(names=SOURCES) -> dict[str, float]:
         if procs:
             time.sleep(0.05)
     if failed:
-        logs = "\n".join(
-            (BUILD_DIR / f"{n}.log").read_text()[-4000:] for n in failed)
+        logs = "\n".join(_log_path(n).read_text()[-4000:] for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return times
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library `name` (csrc/<name>.cu, or a part of a split
-    source), built first if missing."""
+    """The loaded library `name` (csrc/<name>.cu, a part of a split
+    source, or ``gen/<digest>``), built first if missing."""
     with _lock:
         if name not in _libs:
             build([name])
@@ -126,5 +176,5 @@ def lib(name: str) -> ctypes.CDLL:
 
 def build_log(name: str) -> str:
     """nvcc's output (with ptxas register/spill counts) of the last build."""
-    path = BUILD_DIR / f"{name}.log"
+    path = _log_path(name)
     return path.read_text() if path.exists() else ""

@@ -12,7 +12,7 @@ import torch
 
 from pil2_stark_tpu_torch.field import torch_gl
 from pil2_stark_tpu_torch.hash import cuda_poseidon, merkle, torch_poseidon
-from pil2_stark_tpu_torch.ops import cuda_ntt, cuda_tac, ntt, torch_tac
+from pil2_stark_tpu_torch.ops import cuda_ntt, cuda_tac, ntt, tac_codegen, torch_tac
 from pil2_stark_tpu_torch.stark import device as stark_device
 from pil2_stark_tpu_torch.stark import setup as tsetup
 from pil2_stark_tpu_torch.tools import exp_poseidon, exp_stream
@@ -184,8 +184,9 @@ def _tac_equal(got, want):
 @pytest.mark.parametrize("which", torch_tac.PROGRAMS)
 @pytest.mark.parametrize("name", ["all_8", "fibonacci_6"])
 def test_tac_kernel_equals_plain(card, name, which, bits):
-    """T1 against run_plain on each committed program at 2^bits rows: fewer
-    rows than a warp, one block, 256 blocks, and a grid-stride loop."""
+    """T1 (the kernel generated from the program) against run_plain on each
+    committed program at 2^bits rows: fewer rows than a warp, one block,
+    256 blocks, and a grid-stride loop."""
     setup = tsetup.read_setup(name)
     info = setup["starkInfo"]
     code, dom = torch_tac.device_program(info, setup["expressionsInfo"], which)
@@ -193,18 +194,18 @@ def test_tac_kernel_equals_plain(card, name, which, bits):
     n_bits = bits if dom == "n" else bits - extend
     prog = torch_tac.compile_program(code, dom, info, n_bits, n_bits + extend)
     inputs = _tac_inputs(info, dom, 1 << bits, bits, card)
-    before = cuda_tac.tac_eval.launches
+    before = cuda_tac.tac_program.launches
     got = torch_tac.run_kernel(prog, inputs)
-    assert cuda_tac.tac_eval.launches == before + 1
+    assert cuda_tac.tac_program.launches == before + 1
     _tac_equal(got, torch_tac.run_plain(prog, inputs))
 
 
 def test_tac_segmented_program_on_card(card):
     code_obj, info, prog = tac_cases.segmented_case(12, 14)
     inputs = tac_cases.inputs_for(info, 1 << 14, 9, card)
-    before = cuda_tac.tac_eval.launches
+    before = cuda_tac.tac_program.launches
     got = torch_tac.make_executor(code_obj, "ext", info, 12, 14)(inputs)
-    assert cuda_tac.tac_eval.launches == before + len(prog.segments) == before + 3
+    assert cuda_tac.tac_program.launches == before + len(prog.segments) == before + 3
     _tac_equal(got, torch_tac.run_plain(prog, inputs))
 
 
@@ -221,13 +222,45 @@ def test_tac_mixed_dims_on_card(card, op, da, db, b_kind):
     _tac_equal(torch_tac.run_kernel(prog, inputs), torch_tac.run_plain(prog, inputs))
 
 
+CORNERS = [0, 1, 2, 3, P - 1, P - 2, P - 3, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
+           (1 << 63) - 1, 1 << 63, P - (1 << 32), P - (1 << 32) + 1, (1 << 31) + 7, 0x123456789]
+
+
+@pytest.mark.parametrize("da,db", [(1, 1), (3, 3)])
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_tac_field_ops_at_corners_on_card(card, op, da, db):
+    """T1's field ops (csrc/f3.cuh, whose carries and borrows come from PTX
+    carry chains on the card) on every pair of values near 0, 2^32, 2^63
+    and p, against run_plain."""
+    code_obj, info, _ = tac_cases.mixed_case(op, da, db, "column")
+    prog = torch_tac.compile_program(code_obj, "n", info, 8, 10)
+    inputs = tac_cases.inputs_for(info, 1 << 8, 3, card)
+    grid = np.array(CORNERS, dtype=np.uint64)
+    cols = [np.roll(np.repeat(grid, 16), 16 * j) for j in range(3)]
+    cols += [np.roll(np.tile(grid, 16), j) for j in range(3)]
+    inputs["sections"]["cm1"] = torch_gl.from_u64(np.stack(cols), card)
+    _tac_equal(torch_tac.run_kernel(prog, inputs), torch_tac.run_plain(prog, inputs))
+
+
+def test_tac_wide_program_on_card(card):
+    """40 extension values live at once, more than any committed program:
+    the generated kernel builds and equals run_plain."""
+    code_obj, info, prog = tac_cases.wide_case(40, 14, 16)
+    inputs = tac_cases.inputs_for(info, 1 << 16, 12, card)
+    before = cuda_tac.tac_program.launches
+    got = torch_tac.make_executor(code_obj, "ext", info, 14, 16)(inputs)
+    assert cuda_tac.tac_program.launches == before + 1
+    _tac_equal(got, torch_tac.run_plain(prog, inputs))
+
+
 def test_tac_refuses_bad_inputs(card):
     """CPU tensors, a non-contiguous section and a section too short for a
     dim-3 column."""
     code_obj, info, prog = tac_cases.segmented_case(12, 14)
-    cpu = torch.zeros((1, 5), dtype=torch.int64)
+    gen = tac_codegen.generate(prog)
+    cpu = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(ValueError):
-        cuda_tac.tac_eval(cpu, cpu, cpu, 16, 1)
+        cuda_tac.tac_program(gen, [0] * gen.n_cols, cpu, 1 << 14)
     inputs = tac_cases.inputs_for(info, 1 << 14, 9, card)
     cm1 = inputs["sections"]["cm1"]
     inputs["sections"]["cm1"] = torch.cat([cm1] * 2, dim=1)[:, ::2]

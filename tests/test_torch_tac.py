@@ -1,12 +1,20 @@
 """PyTorch port's TAC executor (ops/torch_tac.py) against the JAX package's
 planar jax_tac executor, on the imPol, Q and FRI programs of the all-gadgets
 machine at 2^8, with the same random sections, scalars and domain tables.
-Tolerance: none — exact, bit for bit."""
+Tolerance: none — exact, bit for bit.
+
+The JAX executor runs its own body (make_executor's trace of the program)
+eagerly, each GL op jitted on its own (the ``jax_executor`` fixture, which
+tests/test_torch_tac_codegen.py shares): under one jit the program takes
+about a minute to compile on the CPU, op by op under disable_jit about
+25 s for the three programs."""
+import types
+
 import jax
 import numpy as np
 import pytest
 
-from pil2_stark_tpu.field import jax_gl
+from pil2_stark_tpu.field import jax_f3, jax_gl
 from pil2_stark_tpu.ops import jax_tac
 from pil2_stark_tpu_torch.field import torch_gl
 from pil2_stark_tpu_torch.ops import torch_tac
@@ -15,8 +23,23 @@ from pil2_stark_tpu_torch.stark import setup as tsetup
 P = 0xFFFFFFFF00000001
 
 
+@pytest.fixture(scope="module")
+def jax_executor():
+    """make_executor with its body run eagerly and each GL op jitted on its
+    own; the executors made through it are dropped again afterwards."""
+    cached = set(jax_tac._EXECUTOR_CACHE)
+    gl_ops = types.SimpleNamespace(**{k: jax.jit(getattr(jax_gl, k))
+                                      for k in ("add", "sub", "mul", "neg")})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_tac, "jax", types.SimpleNamespace(jit=lambda f, **_: f))
+        mp.setattr(jax_f3, "gl", gl_ops)
+        yield jax_tac.make_executor
+    for key in set(jax_tac._EXECUTOR_CACHE) - cached:
+        del jax_tac._EXECUTOR_CACHE[key]
+
+
 @pytest.mark.parametrize("which", ["imPols", "q", "fri"])
-def test_tac_program_matches_jax(which):
+def test_tac_program_matches_jax(jax_executor, which):
     setup = tsetup.read_setup("all_8")
     info = setup["starkInfo"]
     ss = info["starkStruct"]
@@ -59,10 +82,7 @@ def test_tac_program_matches_jax(which):
         "Zi": torch_gl.from_u64(zi),
         "xDivXSubXi": torch_gl.from_u64(xdiv),
     }
-    # op by op: compiling the whole program as one XLA computation costs
-    # about a minute on the CPU, evaluating it eagerly a few seconds
-    with jax.disable_jit():
-        want = jax_tac.make_executor(code, dom, info, n_bits, ext_bits, planar=True)(j_inputs)
+    want = jax_executor(code, dom, info, n_bits, ext_bits, planar=True)(j_inputs)
     got = torch_tac.make_executor(code, dom, info, n_bits, ext_bits)(t_inputs)
     for key in ("q", "f"):
         assert (key in got) == (key in want)

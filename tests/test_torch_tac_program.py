@@ -189,6 +189,36 @@ def test_segmented_program_matches_op_by_op():
         assert torch.equal(got["cm"][("cm1", 3 * i, SEG_DIMS[i])], want_cm[i])
 
 
+def wide_case(live=40, n_bits=4, ext_bits=6):
+    """A program that holds `live` extension values at once, more than any
+    committed program: tmp k = cm (k mod 4) · challenge (k mod 2) + x,
+    then q = Σ tmp k · eval (k mod 2), summed from the last value down."""
+    info = _pil_info([1, 3, 1, 3])
+    code = [{"op": "muladd", "dest": _ref("tmp", k),
+             "src": [_ref("cm", k % 4, k % 3 - 1), _ref("challenge", k % 2), _ref("x", 0)]}
+            for k in range(live)]
+    code.append({"op": "mul", "dest": _ref("tmp", live),
+                  "src": [_ref("tmp", live - 1), _ref("eval", 0)]})
+    for k in range(live - 2, -1, -1):
+        code.append({"op": "muladd", "dest": _ref("tmp", live),
+                     "src": [_ref("tmp", k), _ref("eval", k % 2), _ref("tmp", live)]})
+    code.append({"op": "copy", "dest": {"type": "q", "dim": 3}, "src": [_ref("tmp", live)]})
+    code_obj = {"code": code}
+    prog = torch_tac.compile_program(code_obj, "ext", info, n_bits, ext_bits)
+    return code_obj, info, prog
+
+
+def test_wide_program_matches_op_by_op():
+    code_obj, info, prog = wide_case()
+    assert prog.n_slots == 40 and len(prog.segments) == 1
+    n, extend_bits = 1 << 6, 2
+    inputs = inputs_for(info, n, 12)
+    got = torch_tac.make_executor(code_obj, "ext", info, 4, 6)(inputs)
+    want_out, _ = reference(code_obj["code"], info, inputs, n,
+                            lambda p: ((p or 0) << extend_bits) % n)
+    assert torch.equal(got["q"], want_out["q"])
+
+
 MIXED = [(1, 1), (1, 3), (3, 1), (3, 3)]
 
 
