@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of checkouts on one card: kernel B4's time and the fibonacci 2^22 /
-ext 2^25 prove (its phases and per-phase peak memory), one process per
-checkout, in the order given.
+"""A/B of checkouts on one card: kernel B4's time, kernel T1's time on the Q
+and FRI programs of both proves, and the fibonacci 2^22 / ext 2^25 prove
+(its phases and per-phase peak memory), one process per checkout, in the
+order given.
 
     python3 ab_trees.py PARENT . . PARENT
 
@@ -11,13 +12,15 @@ lists).  In each, a fresh process builds every kernel source of that
 checkout (``cuda_build.build()``) and, where the checkout generates T1 per
 program, the setup's programs (``torch_tac.build_programs``), so no compile
 falls inside a timed prove; it times its ``cuda_poseidon.permute`` on 2^22
-and 2^25 random
-states with CUDA events, then runs its own ``chip_smoke.phase_prove`` on
-setups/fibonacci_22.json (cold and warm prove, verify) with the launch
-counters of its own ``chip_smoke.prove_counters`` (B1–B4 in checkouts
-older than it); phase_prove fails if one of them never launched in the
-cold prove.  Every run prints one JSON
-line; then one line with the card's name and power limit.  Runs in turns
+and 2^25 random states with CUDA events, its T1 on the all-gadgets 2^22
+and fibonacci 2^25 Q and FRI programs with its own ``chip_smoke._tac_rows``
+(which also holds T1 against ``run_plain``), then runs its own
+``chip_smoke.phase_prove`` on setups/fibonacci_22.json (cold and warm
+prove, verify) with the launch counters of its own
+``chip_smoke.prove_counters`` (B1–B4 in checkouts older than it);
+phase_prove fails if one of them never launched in the cold prove.  Every
+run prints one JSON line; then one line with the card's name and power
+limit.  Runs in turns
 (parent, change, change, parent) put the card's drift on both sides.
 Needs a CUDA card; the checkouts' code does the measuring, so both sides
 are measured as they measure themselves.
@@ -53,7 +56,12 @@ for bits, reps in ((22, 20), (25, 5)):
     ms[bits] = c.cuda_ms(lambda: cuda_poseidon.permute(x), reps)
     del x
     torch.cuda.empty_cache()
-print(json.dumps({{"b4_ms": ms, "build_s": build_s}}), flush=True)
+t1 = {{}}
+for setup in ("all_20", "fibonacci_22"):
+    for r in c._tac_rows(dev, setup, ("q", "fri")):
+        assert r["max_abs_err"] == 0, r
+        t1[setup + "." + r["shape"]["program"]] = r["ms"]
+print(json.dumps({{"b4_ms": ms, "t1_ms": t1, "build_s": build_s}}), flush=True)
 if hasattr(c, "prove_counters"):
     counters = c.prove_counters()
 else:
@@ -73,7 +81,7 @@ def run_tree(root: str) -> dict:
     prove = next(ln for ln in lines if ln.get("phase") == "prove_large")
     phases = {k: v for k, v in prove["phases_warm_s"].items()
               if any(p in k for p in PHASES)}
-    return {"tree": os.path.abspath(root), "b4_ms": b4["b4_ms"],
+    return {"tree": os.path.abspath(root), "b4_ms": b4["b4_ms"], "t1_ms": b4["t1_ms"],
             "build_s": b4["build_s"], "verified": prove["verified"],
             "cold_s": prove["cold_s"], "warm_s": prove["warm_s"],
             "phases_warm_s": phases, "peak_device_bytes": prove["peak_device_bytes"],

@@ -24,7 +24,7 @@ namespace f3 {
 // carry or borrow of the 64-bit add or subtract itself (PTX add.cc /
 // sub.cc, one asm block per chain: the flag does not live from one asm
 // statement to the next).  From T1's SASS per row (PERF.md §6) that is
-// about 8 instructions for an add, 6 for a sub and 18 for a product.  On the
+// about 8 instructions for an add, 6 for a sub and 15 for a product.  On the
 // host (the CPU tests compile the generated rows with g++) they are
 // gl.cuh's.
 namespace g {
@@ -59,9 +59,11 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
 
 // The 128-bit product from PTX's 64-bit mul.lo / mul.hi, which ptxas
 // turns into fewer instructions than the product written in 32-bit halves
-// (PERF.md §6); then gl::reduce128's steps (lo + hi·2^64 ≡ lo - hh + hl·EPS, hi = hh·2^32
-// + hl; a borrow folded as -EPS, a carry as +EPS, then one conditional
-// - p) on carry flags: r + EPS carries exactly when r >= p.
+// (PERF.md §6); then gl::reduce128's steps on carry flags: lo + hi·2^64
+// ≡ lo - hh + hl·EPS (hi = hh·2^32 + hl), a borrow folded as -EPS.  The
+// sum r of the last add takes EPS when it carried (r + EPS is then below
+// p) and becomes r - p = r + EPS when r + EPS carries (r >= p); so one
+// r + EPS, taken when either add carried, does both.
 __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   uint64_t lo, hi, r;
   asm("mul.lo.u64 %0, %2, %3;\n\tmul.hi.u64 %1, %2, %3;" : "=l"(lo), "=l"(hi) : "l"(a), "l"(b));
@@ -75,11 +77,8 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
       "mul.wide.u32 h, hl, 4294967295;\n\t"
       "add.cc.u64 %0, %0, h;\n\t"
       "addc.u32 e, 0, 0;\n\t"
-      "neg.s32 e, e;\n\t"
-      "cvt.u64.u32 f, e;\n\t"
-      "add.u64 %0, %0, f;\n\t"
       "add.cc.u64 h, %0, 4294967295;\n\t"
-      "addc.u32 e, 0, 0;\n\t"
+      "addc.u32 e, e, 0;\n\t"
       "setp.ne.u32 q, e, 0;\n\t"
       "@q mov.b64 %0, h;\n\t}"
       : "=&l"(r) : "l"(lo), "l"(hi));
