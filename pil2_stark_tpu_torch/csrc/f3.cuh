@@ -57,16 +57,13 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   return r;
 }
 
-// The 128-bit product from PTX's 64-bit mul.lo / mul.hi, which ptxas
-// turns into fewer instructions than the product written in 32-bit halves
-// (PERF.md §6); then gl::reduce128's steps on carry flags: lo + hi·2^64
-// ≡ lo - hh + hl·EPS (hi = hh·2^32 + hl), a borrow folded as -EPS.  The
-// sum r of the last add takes EPS when it carried (r + EPS is then below
-// p) and becomes r - p = r + EPS when r + EPS carries (r >= p); so one
-// r + EPS, taken when either add carried, does both.
-__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
-  uint64_t lo, hi, r;
-  asm("mul.lo.u64 %0, %2, %3;\n\tmul.hi.u64 %1, %2, %3;" : "=l"(lo), "=l"(hi) : "l"(a), "l"(b));
+// gl::reduce128's steps on carry flags: lo + hi·2^64 ≡ lo - hh + hl·EPS
+// (hi = hh·2^32 + hl), a borrow folded as -EPS.  The sum r of the last add
+// takes EPS when it carried (r + EPS is then below p) and becomes r - p =
+// r + EPS when r + EPS carries (r >= p); so one r + EPS, taken when either
+// add carried, does both.  Canonical for any lo and hi.
+__device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
+  uint64_t r;
   asm("{\n\t.reg .u64 h, f;\n\t.reg .u32 hl, hh, e;\n\t.reg .pred q;\n\t"
       "mov.b64 {hl, hh}, %2;\n\t"
       "cvt.u64.u32 h, hh;\n\t"
@@ -84,7 +81,19 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
       : "=&l"(r) : "l"(lo), "l"(hi));
   return r;
 }
+
+// The 128-bit product from PTX's 64-bit mul.lo / mul.hi, which ptxas
+// turns into fewer instructions than the product written in 32-bit halves
+// (PERF.md §6), then reduce128.
+__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
+  uint64_t lo, hi;
+  asm("mul.lo.u64 %0, %2, %3;\n\tmul.hi.u64 %1, %2, %3;" : "=l"(lo), "=l"(hi) : "l"(a), "l"(b));
+  return reduce128(lo, hi);
+}
 #else
+__device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
+  return gl::reduce128(lo, hi);
+}
 __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) { return gl::add(a, b); }
 __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) { return gl::sub(a, b); }
 __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) { return gl::mul(a, b); }

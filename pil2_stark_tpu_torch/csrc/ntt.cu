@@ -37,13 +37,17 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "f3.cuh"
 #include "gl.cuh"
+#include "ntt_radix.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kRowThreads = 256;  // B1's register regime
 constexpr int kRegMaxBits = 5;    // B1 keeps n <= 2^5 values per thread
+constexpr int kRadixMaxThreads = 256;  // B1's radix regime: max(NA, NB)·tile
+constexpr int kPassThreads = 128;      // B1's two-pass comparison
 
 __device__ __forceinline__ int brev(int r, int bits) {
   return bits == 0 ? 0 : (int)(__brev((unsigned)r) >> (32 - bits));
@@ -181,35 +185,79 @@ base_rows_reg_kernel(const uint64_t* __restrict__ x,
   for (int r = 0; r < N; ++r) out[(long long)r * lanes + l] = v[r];
 }
 
-// B1, shared regime: block b owns lanes [b·tile, (b+1)·tile) of (n, lanes);
-// lanes past the end load as zero and are not stored.
-__global__ void __launch_bounds__(kThreads)
-base_rows_smem_kernel(const uint64_t* __restrict__ x,
-                      const uint64_t* __restrict__ tw,
-                      uint64_t* __restrict__ out, int bits, long long lanes,
-                      int log_tile) {
+// B1, radix regime: n = NA·NB = 2^(LA+LB), 2^6 <= n <= 2^12, LA, LB <= 6.
+// With i = i1·NB + i2 and o = o1 + NA·o2,
+//   X[o] = Σ_i2 w_NB^(i2·o2) · w_n^(o1·i2) · Σ_i1 w_NA^(i1·o1) · x[i].
+// Block b owns lanes [b·tile, (b+1)·tile) (lanes past the end load as zero
+// and are not stored).  Pass A: thread (i2, t) loads its NA values of one
+// lane, bit-reversed, straight into registers, transforms them (dft), and
+// multiplies by w_n^(o1·i2) from tw[k] = w_n^k.  One exchange through
+// shared memory, (o1, i2, t) at o1·S + i2·tile + t with S = (NB + 1)·tile:
+// the pad staggers the o1 rows a warp reads across the banks.  Pass B:
+// thread (o1, t) reads its NB values, transforms them and stores X from
+// registers.
+template <int LA, int LB, bool INV, int MAX_THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+base_rows_radix_kernel(const uint64_t* __restrict__ x, const uint64_t* __restrict__ tw,
+                       uint64_t* __restrict__ out, long long lanes, int log_tile) {
   extern __shared__ uint64_t sm[];
+  constexpr int NA = 1 << LA, NB = 1 << LB, NMAX = NA > NB ? NA : NB;
   const int tile = 1 << log_tile;
-  const int tp = tile + 1;
-  const long long l0 = (long long)blockIdx.x << log_tile;
-  const int total = (1 << bits) << log_tile;
-
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int t = idx & (tile - 1);
-    const int r = idx >> log_tile;
-    const long long l = l0 + t;
-    sm[r * tp + t] =
-        l < lanes ? gl::canon(x[(long long)brev(r, bits) * lanes + l]) : 0;
+  const int t = threadIdx.x & (tile - 1);
+  const int q = threadIdx.x >> log_tile;  // i2 in pass A, o1 in pass B
+  const long long l = ((long long)blockIdx.x << log_tile) + t;
+  const bool live = l < lanes;
+  const int stride = (NB + 1) << log_tile;
+  uint64_t v[NMAX];
+  if (q < NB) {
+#pragma unroll
+    for (int r = 0; r < NA; ++r)
+      v[r] = live ? gl::canon(x[(long long)(brev_const(r, LA) * NB + q) * lanes + l]) : 0;
+    radix::dft<LA, INV>(v);
+#pragma unroll
+    for (int o1 = 1; o1 < NA; ++o1)
+      v[o1] = f3::g::mul(v[o1], __ldg(tw + ((o1 * q) & (NA * NB - 1))));
+#pragma unroll
+    for (int o1 = 0; o1 < NA; ++o1) sm[o1 * stride + (q << log_tile) + t] = v[o1];
   }
   __syncthreads();
-  butterflies(sm, bits, log_tile, tp, tw);
-
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int t = idx & (tile - 1);
-    const int r = idx >> log_tile;
-    const long long l = l0 + t;
-    if (l < lanes) out[(long long)r * lanes + l] = sm[r * tp + t];
+  if (q < NA) {
+#pragma unroll
+    for (int r = 0; r < NB; ++r) v[r] = sm[q * stride + (brev_const(r, LB) << log_tile) + t];
+    radix::dft<LB, INV>(v);
+    if (live) {
+#pragma unroll
+      for (int o2 = 0; o2 < NB; ++o2) out[(long long)(q + NA * o2) * lanes + l] = v[o2];
+    }
   }
+}
+
+// B1 in two passes through a scratch array, for comparison with the one
+// pass above: one thread per (batch, lane), its 2^LOG values at row stride
+// in_row in registers, transformed, multiplied by w_n^(o·batch) with TW,
+// and stored at row stride out_row.
+template <int LOG, bool INV, bool TW>
+__global__ void __launch_bounds__(kPassThreads, 3)
+base_rows_pass_kernel(const uint64_t* __restrict__ x, const uint64_t* __restrict__ tw,
+                      uint64_t* __restrict__ out, long long lanes, long long batches,
+                      long long in_row, long long in_batch, long long out_row,
+                      long long out_batch, int n_mask) {
+  const long long idx = (long long)blockIdx.x * kPassThreads + threadIdx.x;
+  if (idx >= lanes * batches) return;
+  const long long b = idx / lanes, l = idx - b * lanes;
+  const uint64_t* src = x + b * in_batch + l;
+  uint64_t* dst = out + b * out_batch + l;
+  uint64_t v[1 << LOG];
+#pragma unroll
+  for (int r = 0; r < (1 << LOG); ++r) v[r] = gl::canon(src[brev_const(r, LOG) * in_row]);
+  radix::dft<LOG, INV>(v);
+  if (TW) {
+#pragma unroll
+    for (int o = 1; o < (1 << LOG); ++o)
+      v[o] = f3::g::mul(v[o], __ldg(tw + ((o * b) & n_mask)));
+  }
+#pragma unroll
+  for (int o = 0; o < (1 << LOG); ++o) dst[o * out_row] = v[o];
 }
 
 template <int BITS>
@@ -225,6 +273,69 @@ cudaError_t launch_base_rows_reg(const uint64_t* x, const uint64_t* tw,
 
 size_t smem_bytes(int row_bits, int log_tile) {
   return ((size_t)1 << row_bits) * ((size_t)(1 << log_tile) + 1) * sizeof(uint64_t);
+}
+
+// One block of max(NA, NB)·tile threads per tile of lanes.  With 64
+// values per thread and 2-lane tiles, 128-thread blocks bounded to 170
+// registers, so that three blocks share an SM.
+template <int LA, int LB, bool INV>
+cudaError_t launch_base_rows_radix(const uint64_t* x, const uint64_t* tw, uint64_t* out,
+                                   long long lanes, int log_tile, cudaStream_t stream) {
+  constexpr int NMAX = 1 << (LA > LB ? LA : LB);
+  const int threads = NMAX << log_tile;
+  if (threads > kRadixMaxThreads) return cudaErrorInvalidConfiguration;
+  const size_t smem = ((size_t)(1 << LA) * ((1 << LB) + 1) << log_tile) * sizeof(uint64_t);
+  const long long blocks = (lanes + (1ll << log_tile) - 1) >> log_tile;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidConfiguration;
+  auto kernel = threads <= 128 ? base_rows_radix_kernel<LA, LB, INV, 128, 3>
+                               : base_rows_radix_kernel<LA, LB, INV, kRadixMaxThreads, 1>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(x, tw, out, lanes, log_tile);
+  return cudaGetLastError();
+}
+
+template <bool INV>
+cudaError_t launch_base_rows_radix(int bits, const uint64_t* x, const uint64_t* tw,
+                                   uint64_t* out, long long lanes, int log_tile,
+                                   cudaStream_t s) {
+  switch (bits) {
+    case 6: return launch_base_rows_radix<3, 3, INV>(x, tw, out, lanes, log_tile, s);
+    case 7: return launch_base_rows_radix<4, 3, INV>(x, tw, out, lanes, log_tile, s);
+    case 8: return launch_base_rows_radix<4, 4, INV>(x, tw, out, lanes, log_tile, s);
+    case 9: return launch_base_rows_radix<5, 4, INV>(x, tw, out, lanes, log_tile, s);
+    case 10: return launch_base_rows_radix<5, 5, INV>(x, tw, out, lanes, log_tile, s);
+    case 11: return launch_base_rows_radix<6, 5, INV>(x, tw, out, lanes, log_tile, s);
+    case 12: return launch_base_rows_radix<6, 6, INV>(x, tw, out, lanes, log_tile, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int LOG, bool INV, bool TW>
+cudaError_t launch_pass(const uint64_t* x, const uint64_t* tw, uint64_t* out, long long lanes,
+                        long long batches, long long in_row, long long in_batch,
+                        long long out_row, long long out_batch, int n_mask,
+                        cudaStream_t stream) {
+  const long long blocks = (lanes * batches + kPassThreads - 1) / kPassThreads;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidConfiguration;
+  base_rows_pass_kernel<LOG, INV, TW><<<(unsigned)blocks, kPassThreads, 0, stream>>>(
+      x, tw, out, lanes, batches, in_row, in_batch, out_row, out_batch, n_mask);
+  return cudaGetLastError();
+}
+
+// The two passes at n = 2^12 (64 × 64): x -> scratch (with the twiddle),
+// scratch -> out.
+template <bool INV>
+cudaError_t launch_base_rows_two_pass(const uint64_t* x, const uint64_t* tw,
+                                      uint64_t* scratch, uint64_t* out, long long lanes,
+                                      cudaStream_t s) {
+  constexpr long long NA = 64, NB = 64;
+  cudaError_t e = launch_pass<6, INV, true>(x, tw, scratch, lanes, NB, NB * lanes, lanes,
+                                            NB * lanes, lanes, 4095, s);
+  if (e != cudaSuccess) return e;
+  return launch_pass<6, INV, false>(scratch, tw, out, lanes, NA, lanes, NB * lanes,
+                                    NA * lanes, lanes, 4095, s);
 }
 
 }  // namespace
@@ -256,8 +367,9 @@ extern "C" int gl_base_grid(const void* y, const void* tw, void* out, int bits2,
   return (int)cudaGetLastError();
 }
 
+// tw: the stage twiddles (bits <= kRegMaxBits) or w_n^k, k < n (above).
 extern "C" int gl_base_rows(const void* x, const void* tw, void* out, int bits,
-                            long long lanes, int log_tile, void* stream) {
+                            long long lanes, int log_tile, int inverse, void* stream) {
   if (lanes <= 0 || bits < 1 || bits > 12) return (int)cudaErrorInvalidValue;
   const uint64_t* xi = (const uint64_t*)x;
   const uint64_t* twi = (const uint64_t*)tw;
@@ -272,13 +384,19 @@ extern "C" int gl_base_rows(const void* x, const void* tw, void* out, int bits,
     default: break;
   }
   static_assert(kRegMaxBits == 5, "the switch above covers bits 1..kRegMaxBits");
-  const size_t smem = smem_bytes(bits, log_tile);
-  cudaError_t e = cudaFuncSetAttribute(
-      base_rows_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long blocks = (lanes + (1ll << log_tile) - 1) >> log_tile;
-  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidConfiguration;
-  base_rows_smem_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
-      xi, twi, o, bits, lanes, log_tile);
-  return (int)cudaGetLastError();
+  return (int)(inverse ? launch_base_rows_radix<true>(bits, xi, twi, o, lanes, log_tile, s)
+                       : launch_base_rows_radix<false>(bits, xi, twi, o, lanes, log_tile, s));
+}
+
+// The two-pass comparison at 2^12 rows: tw = w_n^k, scratch of n × lanes.
+extern "C" int gl_base_rows_two_pass(const void* x, const void* tw, void* scratch, void* out,
+                                     long long lanes, int inverse, void* stream) {
+  if (lanes <= 0) return (int)cudaErrorInvalidValue;
+  const uint64_t* xi = (const uint64_t*)x;
+  const uint64_t* twi = (const uint64_t*)tw;
+  uint64_t* sc = (uint64_t*)scratch;
+  uint64_t* o = (uint64_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(inverse ? launch_base_rows_two_pass<true>(xi, twi, sc, o, lanes, s)
+                       : launch_base_rows_two_pass<false>(xi, twi, sc, o, lanes, s));
 }

@@ -6,23 +6,38 @@
 // that fusion.  (T1, the TAC programs, is generated per program by
 // ops/tac_codegen.py on csrc/f3.cuh.)
 //
-// T2 gl_xdiv: one thread per point x of the extended coset; for each
-// opening o, out[o][c][i] = (x − xi_o)^-1 · x with the closed-form cubic
-// inverse (field/torch_f3.py::inv) and one base-field inverse by an
-// addition chain for p − 2 (64 squarings, 10 products); 0 maps to 0.
-// That is 94 GL products per point and opening.  The function needs far
-// fewer: the norm and adjugate of x − xi are polynomials in x, and one
-// inverse serves a batch of points, so its bound is by bytes (8 read per
-// point, 24 written per point and opening).
+// T2 gl_xdiv: out[o][c][i] = x_i/(x_i − xi_o) over F_p³ = F_p[t]/(t³ − t − 1)
+// at each point x_i of the extended coset, 0 where x_i − xi_o is 0.  For a
+// base point x the norm N(x) = Norm(x − xi) = x³ − c2·x² + c1·x − c0 is a
+// monic cubic over F_p, and with the adjugate adj(x) = x² + A1·x + A0
+// ((x − xi)·adj(x) = N(x)),
+//   x/(x − xi) = 1 + xi·adj(x)/N(x) = 1 + (xi·x² + B1·x + c0)/N(x),
+// B1 = xi·A1.  The host computes xi, B1, c2, c1 and c0 once per opening
+// (ops/cuda_tac.py::xdiv_coefficients).  Per point the kernel takes x² (1
+// product), per opening N by Horner (2), the three numerator components
+// (2 each) and their scale by N^-1 (3).  A thread owns K points strided by
+// the block and inverts the K·nOpenings norms of its points together
+// (Montgomery's batch inversion: 3 products per value and one
+// addition-chain inverse per batch, 16 values to a batch).  N = 0 exactly
+// when x = xi: that value enters the batch as 1 and its output is 0, as
+// the plain version's inverse of 0 gives.  All field ops are f3.cuh's
+// canonical carry-chain ops.
+//
+// Bound on the H100: bytes (8 read per point, 24 written per point and
+// opening); the products above, about 19 per point and opening with the
+// inverse shared, stay below the issue rate that would bind it.
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "gl.cuh"
+#include "f3.cuh"
 
 namespace {
 
+namespace g = f3::g;
+
 constexpr int kThreads = 256;
 constexpr int kMaxOpenings = 16;
+constexpr int kBatch = 16;  // norms inverted together by one thread
 
 int sm_count() {
   static int count = 0;
@@ -36,76 +51,127 @@ int sm_count() {
 
 // x^(p-2) = x^((2^31 - 1)·2^33 + 2^32 - 1); 0 -> 0
 __device__ __forceinline__ uint64_t sqn(uint64_t x, int k) {
-  for (int i = 0; i < k; ++i) x = gl::mul(x, x);
+  for (int i = 0; i < k; ++i) x = g::mul(x, x);
   return x;
 }
 
 __device__ uint64_t inv(uint64_t x) {
-  const uint64_t t2 = gl::mul(sqn(x, 1), x);      // 2^2 - 1
-  const uint64_t t4 = gl::mul(sqn(t2, 2), t2);    // 2^4 - 1
-  const uint64_t t8 = gl::mul(sqn(t4, 4), t4);    // 2^8 - 1
-  const uint64_t t16 = gl::mul(sqn(t8, 8), t8);   // 2^16 - 1
-  const uint64_t t24 = gl::mul(sqn(t16, 8), t8);  // 2^24 - 1
-  const uint64_t t28 = gl::mul(sqn(t24, 4), t4);  // 2^28 - 1
-  const uint64_t t30 = gl::mul(sqn(t28, 2), t2);  // 2^30 - 1
-  const uint64_t t31 = gl::mul(sqn(t30, 1), x);   // 2^31 - 1
-  const uint64_t t32 = gl::mul(sqn(t31, 1), x);   // 2^32 - 1
-  return gl::mul(sqn(t31, 33), t32);
+  const uint64_t t2 = g::mul(sqn(x, 1), x);      // 2^2 - 1
+  const uint64_t t4 = g::mul(sqn(t2, 2), t2);    // 2^4 - 1
+  const uint64_t t8 = g::mul(sqn(t4, 4), t4);    // 2^8 - 1
+  const uint64_t t16 = g::mul(sqn(t8, 8), t8);   // 2^16 - 1
+  const uint64_t t24 = g::mul(sqn(t16, 8), t8);  // 2^24 - 1
+  const uint64_t t28 = g::mul(sqn(t24, 4), t4);  // 2^28 - 1
+  const uint64_t t30 = g::mul(sqn(t28, 2), t2);  // 2^30 - 1
+  const uint64_t t31 = g::mul(sqn(t30, 1), x);   // 2^31 - 1
+  const uint64_t t32 = g::mul(sqn(t31, 1), x);   // 2^32 - 1
+  return g::mul(sqn(t31, 33), t32);
 }
 
-struct Openings {
-  uint64_t xi[3 * kMaxOpenings];
+// One opening: xi, B1 = xi·(xi − c2), and N(x) = x³ − c2·x² + c1·x − c0.
+struct Opening {
+  uint64_t xi[3], b1[3], c2, c1, c0;
 };
 
+struct Openings {
+  Opening o[kMaxOpenings];
+};
+
+__device__ __forceinline__ uint64_t norm(const Opening& op, uint64_t x, uint64_t x2) {
+  return g::sub(g::add(g::mul(x2, g::sub(x, op.c2)), g::mul(op.c1, x)), op.c0);
+}
+
+template <int NOPEN>
 __global__ void __launch_bounds__(kThreads)
-xdiv_kernel(const uint64_t* __restrict__ x_ext, Openings op, int n_open,
+xdiv_kernel(const uint64_t* __restrict__ x_ext, const Openings ops,
             uint64_t* __restrict__ out, long long n) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    const uint64_t x = x_ext[i];
-    for (int o = 0; o < n_open; ++o) {
-      // den = x - xi (field/torch_f3.py::sub, base - ext)
-      const uint64_t a0 = gl::sub(x, op.xi[3 * o]);
-      const uint64_t a1 = gl::sub(0, op.xi[3 * o + 1]);
-      const uint64_t a2 = gl::sub(0, op.xi[3 * o + 2]);
-      // closed-form inverse (field/torch_f3.py::inv)
-      const uint64_t aa = gl::mul(a0, a0), ac = gl::mul(a0, a2), ba = gl::mul(a1, a0);
-      const uint64_t bb = gl::mul(a1, a1), bc = gl::mul(a1, a2), cc = gl::mul(a2, a2);
-      const uint64_t aaa = gl::mul(aa, a0), aac = gl::mul(aa, a2), abc = gl::mul(ba, a2);
-      const uint64_t abb = gl::mul(ba, a1), acc = gl::mul(ac, a2), bbb = gl::mul(bb, a1);
-      const uint64_t bcc = gl::mul(bc, a2), ccc = gl::mul(cc, a2);
-      const uint64_t t = gl::sub(
-          gl::add(gl::add(gl::add(abc, abc), abc), gl::add(abb, bcc)),
-          gl::add(gl::add(gl::add(aaa, aac), gl::add(aac, acc)), gl::add(bbb, ccc)));
-      const uint64_t tinv = inv(t);
-      const uint64_t i1 =
-          gl::mul(gl::sub(gl::add(bc, bb), gl::add(gl::add(aa, ac), gl::add(ac, cc))), tinv);
-      const uint64_t i2 = gl::mul(gl::sub(ba, cc), tinv);
-      const uint64_t i3 = gl::mul(gl::sub(gl::add(ac, cc), bb), tinv);
-      uint64_t* p = out + (long long)3 * o * n + i;
-      p[0] = gl::mul(i1, x);
-      p[n] = gl::mul(i2, x);
-      p[2 * n] = gl::mul(i3, x);
+  constexpr int K = kBatch / NOPEN > 0 ? kBatch / NOPEN : 1;  // points per thread
+  constexpr int V = K * NOPEN;
+  const long long span = (long long)blockDim.x * K;
+  for (long long i0 = (long long)blockIdx.x * span + threadIdx.x; i0 < n;
+       i0 += (long long)gridDim.x * span) {
+    uint64_t x[K], den[V], pre[V];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const long long i = i0 + (long long)k * blockDim.x;
+      x[k] = i < n ? x_ext[i] : 0;
+    }
+    uint64_t acc = 1;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint64_t x2 = g::mul(x[k], x[k]);
+#pragma unroll
+      for (int o = 0; o < NOPEN; ++o) {
+        den[k * NOPEN + o] = norm(ops.o[o], x[k], x2);
+        acc = g::mul(acc, den[k * NOPEN + o] == 0 ? 1 : den[k * NOPEN + o]);
+        pre[k * NOPEN + o] = acc;
+      }
+    }
+    acc = inv(acc);  // the inverse of every nonzero norm of the batch
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+      const long long i = i0 + (long long)k * blockDim.x;
+      const uint64_t x2 = g::mul(x[k], x[k]);
+#pragma unroll
+      for (int o = NOPEN - 1; o >= 0; --o) {
+        const int v = k * NOPEN + o;
+        const bool zero = den[v] == 0;
+        const uint64_t ninv = v > 0 ? g::mul(acc, pre[v - 1]) : acc;
+        if (!zero) acc = g::mul(acc, den[v]);
+        if (i >= n) continue;
+        const Opening& op = ops.o[o];
+        uint64_t* p = out + (long long)3 * o * n + i;
+        const uint64_t s = zero ? 0 : ninv;
+        const uint64_t num0 =
+            g::add(g::add(g::mul(op.xi[0], x2), g::mul(op.b1[0], x[k])), op.c0);
+        p[0] = zero ? 0 : g::add(1, g::mul(num0, s));
+        p[n] = g::mul(g::add(g::mul(op.xi[1], x2), g::mul(op.b1[1], x[k])), s);
+        p[2 * n] = g::mul(g::add(g::mul(op.xi[2], x2), g::mul(op.b1[2], x[k])), s);
+      }
     }
   }
 }
 
-}  // namespace
-
-extern "C" int gl_xdiv(const void* x_ext, const void* xis, int n_open, void* out,
-                       long long n, void* stream) {
-  if (n <= 0 || n_open <= 0 || n_open > kMaxOpenings) return (int)cudaErrorInvalidValue;
-  Openings op{};
-  const uint64_t* src = (const uint64_t*)xis;
-  for (int i = 0; i < 3 * n_open; ++i) op.xi[i] = src[i];
+template <int NOPEN>
+cudaError_t launch(const uint64_t* x, const Openings& ops, uint64_t* out, long long n,
+                   cudaStream_t stream) {
+  constexpr int K = kBatch / NOPEN > 0 ? kBatch / NOPEN : 1;
   int per_sm = 0;
-  cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, xdiv_kernel, kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  long long blocks = (n + kThreads - 1) / kThreads;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, xdiv_kernel<NOPEN>, kThreads, 0);
+  if (e != cudaSuccess) return e;
+  long long blocks = (n + (long long)kThreads * K - 1) / ((long long)kThreads * K);
   const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
   if (blocks > resident) blocks = resident;
-  xdiv_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)x_ext, op, n_open, (uint64_t*)out, n);
-  return (int)cudaGetLastError();
+  xdiv_kernel<NOPEN><<<(unsigned)blocks, kThreads, 0, stream>>>(x, ops, out, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// coefs: per opening xi[3], b1[3], c2, c1, c0 (canonical), as
+// ops/cuda_tac.py::xdiv_coefficients gives them.
+extern "C" int gl_xdiv(const void* x_ext, const void* coefs, int n_open, void* out,
+                       long long n, void* stream) {
+  if (n <= 0 || n_open <= 0 || n_open > kMaxOpenings) return (int)cudaErrorInvalidValue;
+  Openings ops{};
+  const uint64_t* src = (const uint64_t*)coefs;
+  for (int o = 0; o < n_open; ++o) {
+    const uint64_t* c = src + 9 * o;
+    ops.o[o] = Opening{{c[0], c[1], c[2]}, {c[3], c[4], c[5]}, c[6], c[7], c[8]};
+  }
+  const uint64_t* x = (const uint64_t*)x_ext;
+  uint64_t* o = (uint64_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_open) {
+#define XDIV_CASE(k) \
+  case k: return (int)launch<k>(x, ops, o, n, s);
+    XDIV_CASE(1) XDIV_CASE(2) XDIV_CASE(3) XDIV_CASE(4) XDIV_CASE(5) XDIV_CASE(6)
+    XDIV_CASE(7) XDIV_CASE(8) XDIV_CASE(9) XDIV_CASE(10) XDIV_CASE(11) XDIV_CASE(12)
+    XDIV_CASE(13) XDIV_CASE(14) XDIV_CASE(15) XDIV_CASE(16)
+#undef XDIV_CASE
+    default: break;
+  }
+  static_assert(kMaxOpenings == 16, "the switch above covers 1..kMaxOpenings");
+  return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,11 @@ PyTorch version.
   * ``base_rows`` replaces pallas_ntt.base_ntt_brev (pallas_ntt.py:519): the
     base of the row-major route — a length-n DIT along axis 0 of an (n, L)
     array, n = 2^1..2^12, any L.  Bound on the card: bytes (read once,
-    write once); n <= 32 runs in registers, larger n in a shared tile.
+    write once); n <= 32 runs in registers, larger n as n = NA·NB
+    (``radix_split``): NA-point transforms in registers, the twiddle
+    w_n^(o1·i2) (``radix_twiddles``), one exchange through shared memory,
+    NB-point transforms in registers.  Transforms of up to 64 points take
+    power-of-two stage twiddles (``pow2_exponents``), no general product.
 
 Unlike the Pallas kernels, all three take natural-order input (the gather
 is fused into the kernels' loads) and return canonical values.  The
@@ -33,6 +37,7 @@ from ..utils import cuda_build
 
 _SMEM_WORDS = 16384  # rows × tile u64 words a block holds (128 KiB)
 _MAX_TILE = 32
+_REG_MAX_BITS = 5  # B1 runs n <= 2^5 in registers, larger n in the radix regime
 
 
 def bit_reverse_indices(bits: int) -> np.ndarray:
@@ -105,8 +110,10 @@ def _lib():
         lib.gl_level_planar.restype = ci
         lib.gl_base_grid.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.gl_base_grid.restype = ci
-        lib.gl_base_rows.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, ci, vp]
+        lib.gl_base_rows.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, ci, ci, vp]
         lib.gl_base_rows.restype = ci
+        lib.gl_base_rows_two_pass.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, vp]
+        lib.gl_base_rows_two_pass.restype = ci
         lib._typed = True
     return lib
 
@@ -200,6 +207,42 @@ def base_rows_plain(x, bits: int, inverse: bool) -> torch.Tensor:
     return dit_brev(gl.canon(x[rev]), bits, inverse)
 
 
+def radix_split(bits: int) -> tuple[int, int]:
+    """(LA, LB) of B1's radix regime: n = 2^bits = NA·NB, each at most 64
+    (csrc/ntt.cu, launch_base_rows_radix's switch)."""
+    return (bits + 1) // 2, bits // 2
+
+
+def pow2_exponents(bits: int, inverse: bool) -> np.ndarray:
+    """e with w_{2^s}^j = 2^e (e < 192), stage s <= bits <= 6 at
+    [2^(s-1) - 1 + j], the layout of stage_twiddles_u64: the exponents
+    csrc/ntt_radix.cuh's tw_exp gives."""
+    out = []
+    for s in range(1, bits + 1):
+        j = np.arange(1 << (s - 1), dtype=np.int64)
+        e = j * (192 >> s)
+        out.append((192 - e) % 192 if inverse else e)
+    return np.concatenate(out) if out else np.zeros(0, dtype=np.int64)
+
+
+def radix_twiddles(bits: int, inverse: bool, device) -> torch.Tensor:
+    """w_n^k, k < n = 2^bits: B1's radix regime takes w_n^(o1·i2) from it."""
+    key = ("pow", bits, inverse, str(device))
+    t = _TW_CACHE.get(key)
+    if t is None:
+        t = gl.powers(gl64.w_inv(bits) if inverse else gl64.w(bits), 1 << bits, device)
+        _TW_CACHE[key] = t
+    return t
+
+
+def radix_tile(bits: int, lanes: int) -> int:
+    """Lanes per block in the radix regime: blocks of max(NA, NB)·tile
+    threads, 128 when a thread holds 64 values, else 256."""
+    n_max = 1 << max(radix_split(bits))
+    threads = 128 if n_max == 64 else 256
+    return min(threads // n_max, 1 << (lanes - 1).bit_length())
+
+
 def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return base_rows_plain(x, bits, inverse)
@@ -210,10 +253,12 @@ def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
     lanes = x.shape[1]
     _check(x, (1 << bits, lanes), "base_rows x")
     out = torch.empty_like(x)
-    tile = _tile(bits, 1 << (lanes - 1).bit_length())
-    tw = stage_twiddles(bits, inverse, x.device)
+    if bits <= _REG_MAX_BITS:
+        tw, tile = stage_twiddles(bits, inverse, x.device), 1
+    else:
+        tw, tile = radix_twiddles(bits, inverse, x.device), radix_tile(bits, lanes)
     rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), out.data_ptr(), bits, lanes,
-                             tile.bit_length() - 1, _stream(x))
+                             tile.bit_length() - 1, int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gl_base_rows launch failed: CUDA error {rc}")
     base_rows.launches += 1

@@ -8,8 +8,10 @@
     version is ``torch_tac.run_plain``.
   * ``gl_xdiv`` (T2, csrc/tac.cu) computes the xDivXSubXi table
     x/(x − xi_o) over the extended coset, the counterpart of the jitted
-    elementwise program pil2_stark_tpu/stark/device.py:349 ``_jit_xdiv``;
-    its plain version is ``stark/device.py::compute_xdiv_plain``.
+    elementwise program pil2_stark_tpu/stark/device.py:349 ``_jit_xdiv``,
+    as 1 + (xi·x² + B1·x + c0)/N(x) with per-opening coefficients from
+    ``xdiv_coefficients``; its plain version is
+    ``stark/device.py::compute_xdiv_plain``.
 
 Both launch only on CUDA tensors (building their library at first use)
 and raise on anything else; each counts its kernel launches in
@@ -21,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..field import f3
 from ..field import torch_gl as gl
 from ..utils import cuda_build
 
@@ -98,6 +101,25 @@ def tac_program(gen, cols, scalars: torch.Tensor, n: int) -> None:
 tac_program.launches = 0
 
 
+def xdiv_coefficients(xi) -> tuple:
+    """(xi, B1, c2, c1, c0) of one opening point xi (a 3-tuple of ints)
+    over F_p[t]/(t³ − t − 1): N(x) = Norm(x − xi) = x³ − c2·x² + c1·x − c0
+    for a base point x, from the matrix of multiplication by xi (its trace,
+    the sum of its principal 2 × 2 minors, its determinant), and
+    B1 = xi·(xi − c2), so that x/(x − xi) = 1 + (xi·x² + B1·x + c0)/N(x)
+    wherever N(x) is not 0."""
+    a0, a1, a2 = (int(v) % f3.P for v in xi)
+    m = [[a0, a2, a1], [a1, a0 + a2, a1 + a2], [a2, a1, a0 + a2]]
+    c2 = (m[0][0] + m[1][1] + m[2][2]) % f3.P
+    c1 = sum(m[i][i] * m[j][j] - m[i][j] * m[j][i]
+             for i, j in ((0, 1), (0, 2), (1, 2))) % f3.P
+    c0 = (m[0][0] * (m[1][1] * m[2][2] - m[1][2] * m[2][1])
+          - m[0][1] * (m[1][0] * m[2][2] - m[1][2] * m[2][0])
+          + m[0][2] * (m[1][0] * m[2][1] - m[1][1] * m[2][0])) % f3.P
+    xi3 = (a0, a1, a2)
+    return xi3, f3.mul(xi3, f3.sub(xi3, c2)), c2, c1, c0
+
+
 def gl_xdiv(x_ext: torch.Tensor, xi_list) -> torch.Tensor:
     """(nOpenings, 3, extN): x/(x − xi) for each opening point xi (a
     3-tuple of ints) at each point x of x_ext; 0 where x − xi is 0.  The
@@ -109,9 +131,12 @@ def gl_xdiv(x_ext: torch.Tensor, xi_list) -> torch.Tensor:
     out = torch.empty((len(xi_list), 3, n), dtype=torch.int64, device=x_ext.device)
     if n == 0 or not xi_list:
         return out
-    xis = (ctypes.c_longlong * (3 * len(xi_list)))(
-        *[gl.i64(int(v)) for xi in xi_list for v in xi])
-    rc = _lib().gl_xdiv(x_ext.data_ptr(), ctypes.cast(xis, ctypes.c_void_p), len(xi_list),
+    words = []
+    for xi in xi_list:
+        xi3, b1, c2, c1, c0 = xdiv_coefficients(xi)
+        words += [*xi3, *b1, c2, c1, c0]
+    coefs = (ctypes.c_longlong * len(words))(*[gl.i64(v) for v in words])
+    rc = _lib().gl_xdiv(x_ext.data_ptr(), ctypes.cast(coefs, ctypes.c_void_p), len(xi_list),
                         out.data_ptr(), n, _stream(x_ext))
     if rc != 0:
         raise RuntimeError(f"gl_xdiv with {len(xi_list)} openings failed: CUDA error {rc} "

@@ -1,5 +1,6 @@
 // Host build of the kernel T1 row bodies that ops/tac_codegen.py generates
-// (tests/test_torch_tac_codegen.py): the CUDA qualifiers become plain C++,
+// (tests/test_torch_tac_codegen.py) and of csrc/ntt_radix.cuh
+// (tests/test_torch_ntt_radix.py): the CUDA qualifiers become plain C++,
 // __umul64hi the high word of a 128-bit product, __ldg a plain load.  The
 // generated source's device-only part (kernels and launcher) sits under
 // __CUDACC__, so g++ compiles only the row functions and their helpers.
@@ -7,6 +8,7 @@
 #include <cstdint>
 
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__
 
