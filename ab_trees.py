@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """A/B of checkouts on one card: kernel B4's time, kernel T1's time on the Q
-and FRI programs of both proves, and the fibonacci 2^22 / ext 2^25 prove
-(its phases and per-phase peak memory), one process per checkout, in the
-order given.
+and FRI programs of both proves, kernel B1's at the fibonacci 2^25 prove's
+shapes and T2's at 2^22 and 2^25 points, and the fibonacci 2^22 / ext 2^25
+prove (its phases and per-phase peak memory), one process per checkout, in
+the order given.
 
     python3 ab_trees.py PARENT . . PARENT
 
@@ -14,7 +15,9 @@ program, the setup's programs (``torch_tac.build_programs``), so no compile
 falls inside a timed prove; it times its ``cuda_poseidon.permute`` on 2^22
 and 2^25 random states with CUDA events, its T1 on the all-gadgets 2^22
 and fibonacci 2^25 Q and FRI programs with its own ``chip_smoke._tac_rows``
-(which also holds T1 against ``run_plain``), then runs its own
+(which also holds T1 against ``run_plain``), its B1 and T2 with its own
+``_b1_rows`` and ``_xdiv_row`` (each held against its plain version), then
+runs its own
 ``chip_smoke.phase_prove`` on setups/fibonacci_22.json (cold and warm
 prove, verify) with the launch counters of its own
 ``chip_smoke.prove_counters`` (B1–B4 in checkouts older than it);
@@ -61,7 +64,17 @@ for setup in ("all_20", "fibonacci_22"):
     for r in c._tac_rows(dev, setup, ("q", "fri")):
         assert r["max_abs_err"] == 0, r
         t1[setup + "." + r["shape"]["program"]] = r["ms"]
-print(json.dumps({{"b4_ms": ms, "t1_ms": t1, "build_s": build_s}}), flush=True)
+b1 = {{}}
+for r in c._b1_rows(dev):
+    assert r["max_abs_err"] == 0, r
+    b1["{{n}}x{{lanes}}".format(**r["shape"])] = r["ms"]
+t2 = {{}}
+for bits in (22, 25):
+    r = c._xdiv_row(dev, bits, "{SETUP}")
+    assert r["max_abs_err"] == 0, r
+    t2[bits] = r["ms"]
+print(json.dumps({{"b4_ms": ms, "t1_ms": t1, "b1_ms": b1, "t2_ms": t2, "build_s": build_s}}),
+      flush=True)
 if hasattr(c, "prove_counters"):
     counters = c.prove_counters()
 else:
@@ -82,6 +95,7 @@ def run_tree(root: str) -> dict:
     phases = {k: v for k, v in prove["phases_warm_s"].items()
               if any(p in k for p in PHASES)}
     return {"tree": os.path.abspath(root), "b4_ms": b4["b4_ms"], "t1_ms": b4["t1_ms"],
+            "b1_ms": b4["b1_ms"], "t2_ms": b4["t2_ms"],
             "build_s": b4["build_s"], "verified": prove["verified"],
             "cold_s": prove["cold_s"], "warm_s": prove["warm_s"],
             "phases_warm_s": phases, "peak_device_bytes": prove["peak_device_bytes"],

@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
   1. build       — compile every CUDA source of the port and the T1 kernel
                    generated for each TAC program of both proves (one nvcc
                    per source, all in parallel); registers and spills from
-                   ptxas, and SASS instructions per permutation by
+                   ptxas (B1's 64-point passes and T2 at two openings in
+                   their own entry), and SASS instructions per permutation by
                    class (cuobjdump) of B4 and of the schedule before it,
                    which X1 still runs;
   2. kernels     — run each kernel at the shapes each prove path gives it
@@ -43,8 +44,8 @@ Phases, each printing one JSON line:
                    row route, setups/fibonacci_22.json).
 In each prove phase the kernels' launch counters are zeroed just before the
 cold prove and read just after it, and every kernel must have launched (T1
-three times, once per program, and T2 once); B1's launches are also
-reported by shape.
+three times, once per program, and T2 once); B1's kernel launches are also
+reported by shape (two per base of more than 64 rows).
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
 card; imports nothing of JAX.
@@ -76,8 +77,9 @@ IMAD_PER_GL_MUL = 4
 # Poseidon: 1,122 GL multiplies per permutation plus 7 products by the
 # small MDS matrix, each 144 entries × 2 halves multiply-adds.
 POSEIDON_IMAD = 1122 * IMAD_PER_GL_MUL + 7 * 144 * 2
-# T2's operations bound counts the GL products x/(x − xi) needs, not the
-# 94 per point and opening that csrc/tac.cu's xdiv_kernel spends.  With
+# T2's operations bound counts the GL products x/(x − xi) needs (csrc/tac.cu's
+# xdiv_kernel spends more: sums of products reduced once count as less,
+# the block-wide scans and the serial inverse as more).  With
 # x/(x − xi) = 1 + xi·adj(x − xi)/N(x − xi), the norm N is a monic cubic in
 # x and the three components of xi·adj are quadratics in x, all with
 # coefficients the host computes once per opening: x² once per point, then
@@ -175,9 +177,13 @@ def ptxas_summary(log: str) -> list:
         elif (m := re.search(r"Used (\d+) registers", ln)) and name:
             t = re.search(r"variant_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d)E", name)
             u = re.search(r"tac_seg(\d+)", name)
+            x = re.search(r"xdiv_kernelILi(\d+)E", name)
+            b = re.search(r"base_rows_pass_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
             label = (f"variant_kernel<sq={t[1]},lazy={t[2]},probe={t[3]},ns={t[4]}>" if t
                      else f"tac_seg{u[1]}" if u
-                     else "xdiv_kernel" if "xdiv_kernel" in name else name)
+                     else f"xdiv_kernel<{x[1]}>" if x
+                     else f"base_rows_pass<{b[1]},inv={b[2]},tw={b[3]},canon={b[4]}>" if b
+                     else name)
             out.append([label, int(m.group(1)), *spill, stack])
             name = None
     return out
@@ -318,8 +324,11 @@ def phase_build():
     sass = {"poseidon": sass_counts("poseidon", "poseidon_kernel", ROUND_TRIPS),
             "poseidon_stream": sass_counts("poseidon_stream", "stream_kernel", ROUND_TRIPS,
                                            outer=True)}
+    # B1's radix passes at 4096 rows and T2 at the proves' two openings
+    b1_t2 = {e[0]: e[1:] for name in ("ntt", "tac") for e in ptxas[name]
+             if e[0].startswith("base_rows_pass<6") or e[0] == "xdiv_kernel<2>"}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": times,
-          "ptxas": ptxas, "b4_sass": sass})
+          "ptxas": ptxas, "b1_t2_ptxas": b1_t2, "b4_sass": sass})
 
 
 def phase_kernels(device):
@@ -443,6 +452,12 @@ def _b1_rows(device):
                           lambda: cuda_ntt.base_rows_plain(x, bits, inverse),
                           n * lanes * bits / 2 * IMAD_PER_GL_MUL, 2 * n * lanes * 8,
                           {"n": n, "lanes": lanes, "inverse": inverse}, LARGE_SETUP)
+        if bits > 5:  # the radix regime's passes (ops/cuda_ntt.py::radix_split)
+            la, lb = cuda_ntt.radix_split(bits)
+            inv = int(inverse)
+            row["ptxas"] = {f"pass {k}": _ptxas(f"base_rows_pass<{log},inv={inv},tw={tw},canon={cn}>",
+                                                "ntt")
+                            for k, log, tw, cn in ((1, la, 1, 1), (2, lb, 0, 0)) if log}
         rows.append(row)
         del x
         torch.cuda.empty_cache()
@@ -542,7 +557,7 @@ def _xdiv_row(device, bits, path):
         n * (XDIV_GL_MULS_PER_POINT + len(xis) * XDIV_GL_MULS_PER_OPENING) * IMAD_PER_GL_MUL,
         (1 + 3 * len(xis)) * n * 8,
         {"n": n, "openings": len(xis)}, path, reps=20 if n <= 1 << 22 else 5)
-    row.update(note=XLA_FUSION, ptxas=_ptxas("xdiv_kernel"))
+    row.update(note=XLA_FUSION, ptxas=_ptxas(f"xdiv_kernel<{len(xis)}>"))
     del x
     torch.cuda.empty_cache()
     return row

@@ -14,26 +14,52 @@
 // transform along axis 0 of a row-major (n, L) array, n = 2^1..2^12 and any
 // lane count L, Z[o, l] = Σ_i w_n^(i·o) · x[i, l].
 // All three kernels fuse the bit-reverse gather of their input into the
-// load (the JAX path runs it as a separate jnp.take), run the radix-2 DIT
-// network on values held on chip, and write canonical values (the TPU B3
-// leaves lazy values; these do not).  The inverse transform runs the
-// inverted roots and leaves out 1/n, which the caller folds in.
+// load addressing (the JAX path runs it as a separate jnp.take) and write
+// canonical values (the TPU B3 leaves lazy values; these do not).  The
+// inverse transform runs the inverted roots and leaves out 1/n, which the
+// caller folds in.
 //
-// Bound on the H100: bytes.  Each kernel reads its input once and writes
-// its output once (B2 also reads the (n1, n2) level-twiddle table); the
-// butterflies cost log2(n)/2 GL multiplies per element, far below the
-// integer multiply rate.  The design does one global read and one global
-// write per element: a block holds a (rows × tile) tile in shared memory
-// (tile adjacent lanes, so global loads and stores are coalesced; each row
+// B2 and B3.  Bound on the H100: bytes.  Each reads its input once and
+// writes its output once (B2 also reads the (n1, n2) level-twiddle
+// table).  A block holds a (rows × tile) tile in shared memory (tile
+// adjacent lanes, so global loads and stores are coalesced; each row
 // padded by one word so the transposed B2 write is free of bank
-// conflicts), and all log2(n) stages run there between __syncthreads.
-// B1 with n <= 32 (the FRI folds have n = 8, the 2^25 route a 2-point
-// base) needs no shared memory: one thread owns one lane, holds its n
-// values in registers and runs every stage there, and a warp's loads and
-// stores of a row are 32 adjacent words.  Larger n take B3's shared tile,
-// whose lane count is masked at the ragged edge since L need not be a
-// power of two (the FRI folds transform 3·2^k lanes).  Offsets are 64-bit:
-// the 2-point base of a 2^25 transform spans 3·2^25 words.
+// conflicts), and all log2(n) radix-2 stages run there between
+// __syncthreads.
+//
+// B1.  Bound on the H100: bytes, 2·8·n·L (0.481 / 0.321 / 0.160 ms for the
+// 4096-row bases of a 2^25-point transform of 3 / 2 / 1 columns).  Close
+// behind them is the integer ALU pipe, 64 lanes a clock on each SM: a
+// Goldilocks add takes 7 ALU instructions, a sub 5, a reduction about 10.
+// The design:
+//   * n <= 32: one thread per lane holds its n values in registers and
+//     runs every stage there; a warp's loads and stores of a row are 32
+//     adjacent words.
+//   * n = 2^6..2^12, n = NA·NB with NA, NB <= 64: two launches of one
+//     kernel through a scratch array.  Pass 1 gives each thread the NA
+//     values i1·NB + i2 of one lane (batch i2), all loaded before the
+//     first butterfly at offsets fixed at compile time, transforms them in
+//     registers and multiplies by w_n^(o1·i2) from a row of the table the
+//     block stages in shared memory; pass 2 transforms the NB values of
+//     batch o1 and stores X[o1 + NA·o2] from registers.  Every stage
+//     twiddle of a transform of up to 64 points is a power of two
+//     (ntt_radix.cuh): its product is two 32 × 32 multiply-adds, which
+//     issue to the multiply-add pipe, and one reduction, so a 4096-point
+//     transform takes one general product per element (the twiddle)
+//     instead of six.  A warp reads and writes 256 contiguous bytes of a
+//     row.  Three 128-thread blocks share an SM (about 166 registers).
+//     The floor is twice the byte bound (the scratch array is written and
+//     read once more); at 3 columns pass 1 runs at 1.35× a copy of its
+//     bytes and is held by its ALU stream (about 71 ALU instructions per
+//     element), pass 2 at 1.13× (55).  Two designs measured slower at 4096
+//     rows (PERF.md §6): both passes in one block with the exchange
+//     through shared memory (a 4-lane tile holds 128 KiB, so one block of
+//     8 warps per SM, and its phases do not overlap), and both passes in
+//     one launch over 256-lane chunks whose intermediate stays in L2 (its
+//     pass-2 blocks wait on their chunk's pass 1).  n = 64 is pass 2's
+//     kernel alone.
+// Offsets are 64-bit: the 2-point base of a 2^25 transform spans 3·2^25
+// words.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -44,10 +70,9 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kRowThreads = 256;  // B1's register regime
-constexpr int kRegMaxBits = 5;    // B1 keeps n <= 2^5 values per thread
-constexpr int kRadixMaxThreads = 256;  // B1's radix regime: max(NA, NB)·tile
-constexpr int kPassThreads = 128;      // B1's two-pass comparison
+constexpr int kRowThreads = 256;   // B1's register regime
+constexpr int kRegMaxBits = 5;     // B1 keeps n <= 2^5 values per thread
+constexpr int kPassThreads = 128;  // B1's radix regime
 
 __device__ __forceinline__ int brev(int r, int bits) {
   return bits == 0 ? 0 : (int)(__brev((unsigned)r) >> (32 - bits));
@@ -185,79 +210,62 @@ base_rows_reg_kernel(const uint64_t* __restrict__ x,
   for (int r = 0; r < N; ++r) out[(long long)r * lanes + l] = v[r];
 }
 
-// B1, radix regime: n = NA·NB = 2^(LA+LB), 2^6 <= n <= 2^12, LA, LB <= 6.
-// With i = i1·NB + i2 and o = o1 + NA·o2,
-//   X[o] = Σ_i2 w_NB^(i2·o2) · w_n^(o1·i2) · Σ_i1 w_NA^(i1·o1) · x[i].
-// Block b owns lanes [b·tile, (b+1)·tile) (lanes past the end load as zero
-// and are not stored).  Pass A: thread (i2, t) loads its NA values of one
-// lane, bit-reversed, straight into registers, transforms them (dft), and
-// multiplies by w_n^(o1·i2) from tw[k] = w_n^k.  One exchange through
-// shared memory, (o1, i2, t) at o1·S + i2·tile + t with S = (NB + 1)·tile:
-// the pad staggers the o1 rows a warp reads across the banks.  Pass B:
-// thread (o1, t) reads its NB values, transforms them and stores X from
-// registers.
-template <int LA, int LB, bool INV, int MAX_THREADS, int MIN_BLOCKS>
-__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
-base_rows_radix_kernel(const uint64_t* __restrict__ x, const uint64_t* __restrict__ tw,
-                       uint64_t* __restrict__ out, long long lanes, int log_tile) {
-  extern __shared__ uint64_t sm[];
-  constexpr int NA = 1 << LA, NB = 1 << LB, NMAX = NA > NB ? NA : NB;
-  const int tile = 1 << log_tile;
-  const int t = threadIdx.x & (tile - 1);
-  const int q = threadIdx.x >> log_tile;  // i2 in pass A, o1 in pass B
-  const long long l = ((long long)blockIdx.x << log_tile) + t;
-  const bool live = l < lanes;
-  const int stride = (NB + 1) << log_tile;
-  uint64_t v[NMAX];
-  if (q < NB) {
-#pragma unroll
-    for (int r = 0; r < NA; ++r)
-      v[r] = live ? gl::canon(x[(long long)(brev_const(r, LA) * NB + q) * lanes + l]) : 0;
-    radix::dft<LA, INV>(v);
-#pragma unroll
-    for (int o1 = 1; o1 < NA; ++o1)
-      v[o1] = f3::g::mul(v[o1], __ldg(tw + ((o1 * q) & (NA * NB - 1))));
-#pragma unroll
-    for (int o1 = 0; o1 < NA; ++o1) sm[o1 * stride + (q << log_tile) + t] = v[o1];
-  }
-  __syncthreads();
-  if (q < NA) {
-#pragma unroll
-    for (int r = 0; r < NB; ++r) v[r] = sm[q * stride + (brev_const(r, LB) << log_tile) + t];
-    radix::dft<LB, INV>(v);
-    if (live) {
-#pragma unroll
-      for (int o2 = 0; o2 < NB; ++o2) out[(long long)(q + NA * o2) * lanes + l] = v[o2];
-    }
-  }
+// B1, radix regime: n = NA·NB = 2^(LA+LB) > 32 rows, LA, LB <= 6.  With
+// i = i1·NB + i2 and o = o1 + NA·o2,
+//   X[o] = Σ_i2 w_NB^(i2·o2) · w_n^(o1·i2) · Σ_i1 w_NA^(i1·o1) · x[i],
+// in two launches of one kernel through a scratch array y:
+//   pass 1: batch i2, y[o1·NB + i2] = w_n^(o1·i2) · Σ_i1 w_NA^(i1·o1) x[i1·NB + i2]
+//   pass 2: batch o1, X[o1 + NA·o2] = Σ_i2 w_NB^(i2·o2) y[o1·NB + i2]
+// (n = 64 takes pass 2's kernel alone).  Block (bx, b) owns lanes
+// [bx·128, bx·128 + 128) of batch b: a thread holds the 2^LOG values of
+// one lane at row stride in_row in registers, transforms them (dft: the
+// stage twiddles are powers of two), multiplies by w_n^(o·b) with TW (the
+// block's row of tw[k] = w_n^k, staged in shared memory: read straight
+// from tw, ptxas loaded all 63 words up front, 254 registers, two blocks
+// an SM), and stores them at row stride out_row.
+// The row offsets are template arguments, so every brev_const is folded:
+// in a `#pragma unroll` loop ptxas kept the 64-value pass's bit reversal
+// as a six-trip loop before each load (2.7 ms instead of 1.5 at 3 columns).
+template <int LOG, bool CANON, int... R>
+__device__ __forceinline__ void load_rows(uint64_t* v, const uint64_t* src, long long in_row,
+                                          std::integer_sequence<int, R...>) {
+  ((v[R] = CANON ? gl::canon(src[brev_const(R, LOG) * in_row]) : src[brev_const(R, LOG) * in_row]),
+   ...);
 }
 
-// B1 in two passes through a scratch array, for comparison with the one
-// pass above: one thread per (batch, lane), its 2^LOG values at row stride
-// in_row in registers, transformed, multiplied by w_n^(o·batch) with TW,
-// and stored at row stride out_row.
-template <int LOG, bool INV, bool TW>
+template <int... O>
+__device__ __forceinline__ void twiddle_rows(uint64_t* v, const uint64_t* row,
+                                             std::integer_sequence<int, O...>) {
+  ((v[O + 1] = f3::g::mul(v[O + 1], row[O + 1])), ...);
+}
+
+template <int... O>
+__device__ __forceinline__ void store_rows(uint64_t* dst, const uint64_t* v, long long out_row,
+                                           std::integer_sequence<int, O...>) {
+  ((dst[O * out_row] = v[O]), ...);
+}
+
+template <int LOG, bool INV, bool TW, bool CANON>
 __global__ void __launch_bounds__(kPassThreads, 3)
 base_rows_pass_kernel(const uint64_t* __restrict__ x, const uint64_t* __restrict__ tw,
-                      uint64_t* __restrict__ out, long long lanes, long long batches,
-                      long long in_row, long long in_batch, long long out_row,
-                      long long out_batch, int n_mask) {
-  const long long idx = (long long)blockIdx.x * kPassThreads + threadIdx.x;
-  if (idx >= lanes * batches) return;
-  const long long b = idx / lanes, l = idx - b * lanes;
-  const uint64_t* src = x + b * in_batch + l;
-  uint64_t* dst = out + b * out_batch + l;
-  uint64_t v[1 << LOG];
-#pragma unroll
-  for (int r = 0; r < (1 << LOG); ++r) v[r] = gl::canon(src[brev_const(r, LOG) * in_row]);
-  radix::dft<LOG, INV>(v);
-  if (TW) {
-#pragma unroll
-    for (int o = 1; o < (1 << LOG); ++o)
-      v[o] = f3::g::mul(v[o], __ldg(tw + ((o * b) & n_mask)));
+                      uint64_t* __restrict__ out, long long lanes, long long in_row,
+                      long long in_batch, long long out_row, long long out_batch,
+                      int n_mask) {
+  const long long l = (long long)blockIdx.x * kPassThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  __shared__ uint64_t row[1 << LOG];  // w_n^(o·b), o < 2^LOG
+  if constexpr (TW) {
+    if (threadIdx.x < (1 << LOG)) row[threadIdx.x] = tw[(threadIdx.x * b) & n_mask];
+    __syncthreads();
   }
-#pragma unroll
-  for (int o = 0; o < (1 << LOG); ++o) dst[o * out_row] = v[o];
+  if (l >= lanes) return;
+  uint64_t v[1 << LOG];
+  load_rows<LOG, CANON>(v, x + b * in_batch + l, in_row,
+                        std::make_integer_sequence<int, 1 << LOG>{});
+  radix::dft<LOG, INV>(v);
+  if constexpr (TW)
+    twiddle_rows(v, row, std::make_integer_sequence<int, (1 << LOG) - 1>{});
+  store_rows(out + b * out_batch + l, v, out_row, std::make_integer_sequence<int, 1 << LOG>{});
 }
 
 template <int BITS>
@@ -271,71 +279,67 @@ cudaError_t launch_base_rows_reg(const uint64_t* x, const uint64_t* tw,
   return cudaGetLastError();
 }
 
-size_t smem_bytes(int row_bits, int log_tile) {
-  return ((size_t)1 << row_bits) * ((size_t)(1 << log_tile) + 1) * sizeof(uint64_t);
+template <int LOG, bool INV, bool TW, bool CANON>
+cudaError_t launch_pass(const uint64_t* x, const uint64_t* tw, uint64_t* out, long long lanes,
+                        int batches, long long in_row, long long in_batch, long long out_row,
+                        long long out_batch, int n_mask, cudaStream_t stream) {
+  const long long blocks = (lanes + kPassThreads - 1) / kPassThreads;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidConfiguration;
+  base_rows_pass_kernel<LOG, INV, TW, CANON>
+      <<<dim3((unsigned)blocks, batches), kPassThreads, 0, stream>>>(
+          x, tw, out, lanes, in_row, in_batch, out_row, out_batch, n_mask);
+  return cudaGetLastError();
 }
 
-// One block of max(NA, NB)·tile threads per tile of lanes.  With 64
-// values per thread and 2-lane tiles, 128-thread blocks bounded to 170
-// registers, so that three blocks share an SM.
-template <int LA, int LB, bool INV>
-cudaError_t launch_base_rows_radix(const uint64_t* x, const uint64_t* tw, uint64_t* out,
-                                   long long lanes, int log_tile, cudaStream_t stream) {
-  constexpr int NMAX = 1 << (LA > LB ? LA : LB);
-  const int threads = NMAX << log_tile;
-  if (threads > kRadixMaxThreads) return cudaErrorInvalidConfiguration;
-  const size_t smem = ((size_t)(1 << LA) * ((1 << LB) + 1) << log_tile) * sizeof(uint64_t);
-  const long long blocks = (lanes + (1ll << log_tile) - 1) >> log_tile;
-  if (blocks > 0x7fffffffll) return cudaErrorInvalidConfiguration;
-  auto kernel = threads <= 128 ? base_rows_radix_kernel<LA, LB, INV, 128, 3>
-                               : base_rows_radix_kernel<LA, LB, INV, kRadixMaxThreads, 1>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(x, tw, out, lanes, log_tile);
-  return cudaGetLastError();
+// Pass 1 over NB batches of NA-point transforms, with the twiddle.
+template <int LA, bool INV>
+cudaError_t launch_pass1(const uint64_t* x, const uint64_t* tw, uint64_t* y, long long lanes,
+                         int lb, cudaStream_t s) {
+  const long long nb = 1ll << lb;
+  return launch_pass<LA, INV, true, true>(x, tw, y, lanes, (int)nb, nb * lanes, lanes,
+                                          nb * lanes, lanes, (1 << (LA + lb)) - 1, s);
+}
+
+// Pass 2 over NA batches of NB-point transforms (the whole transform when
+// NA = 1, whose input is not canonical yet).
+template <int LB, bool INV>
+cudaError_t launch_pass2(const uint64_t* y, uint64_t* out, long long lanes, int la,
+                         cudaStream_t s) {
+  const long long na = 1ll << la, nb = 1ll << LB;
+  return la == 0
+      ? launch_pass<LB, INV, false, true>(y, nullptr, out, lanes, 1, lanes, 0, lanes, 0, 0, s)
+      : launch_pass<LB, INV, false, false>(y, nullptr, out, lanes, (int)na, lanes, nb * lanes,
+                                           na * lanes, lanes, 0, s);
 }
 
 template <bool INV>
 cudaError_t launch_base_rows_radix(int bits, const uint64_t* x, const uint64_t* tw,
-                                   uint64_t* out, long long lanes, int log_tile,
+                                   uint64_t* y, uint64_t* out, long long lanes,
                                    cudaStream_t s) {
-  switch (bits) {
-    case 6: return launch_base_rows_radix<3, 3, INV>(x, tw, out, lanes, log_tile, s);
-    case 7: return launch_base_rows_radix<4, 3, INV>(x, tw, out, lanes, log_tile, s);
-    case 8: return launch_base_rows_radix<4, 4, INV>(x, tw, out, lanes, log_tile, s);
-    case 9: return launch_base_rows_radix<5, 4, INV>(x, tw, out, lanes, log_tile, s);
-    case 10: return launch_base_rows_radix<5, 5, INV>(x, tw, out, lanes, log_tile, s);
-    case 11: return launch_base_rows_radix<6, 5, INV>(x, tw, out, lanes, log_tile, s);
-    case 12: return launch_base_rows_radix<6, 6, INV>(x, tw, out, lanes, log_tile, s);
+  const int la = bits - bits / 2, lb = bits / 2;
+  cudaError_t e = cudaSuccess;
+  if (bits > 6) {
+    switch (la) {
+      case 4: e = launch_pass1<4, INV>(x, tw, y, lanes, lb, s); break;
+      case 5: e = launch_pass1<5, INV>(x, tw, y, lanes, lb, s); break;
+      case 6: e = launch_pass1<6, INV>(x, tw, y, lanes, lb, s); break;
+      default: return cudaErrorInvalidValue;
+    }
+    if (e != cudaSuccess) return e;
+  } else {
+    y = (uint64_t*)x;
+  }
+  switch (bits > 6 ? lb : bits) {
+    case 3: return launch_pass2<3, INV>(y, out, lanes, la, s);
+    case 4: return launch_pass2<4, INV>(y, out, lanes, la, s);
+    case 5: return launch_pass2<5, INV>(y, out, lanes, la, s);
+    case 6: return launch_pass2<6, INV>(y, out, lanes, bits > 6 ? la : 0, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int LOG, bool INV, bool TW>
-cudaError_t launch_pass(const uint64_t* x, const uint64_t* tw, uint64_t* out, long long lanes,
-                        long long batches, long long in_row, long long in_batch,
-                        long long out_row, long long out_batch, int n_mask,
-                        cudaStream_t stream) {
-  const long long blocks = (lanes * batches + kPassThreads - 1) / kPassThreads;
-  if (blocks > 0x7fffffffll) return cudaErrorInvalidConfiguration;
-  base_rows_pass_kernel<LOG, INV, TW><<<(unsigned)blocks, kPassThreads, 0, stream>>>(
-      x, tw, out, lanes, batches, in_row, in_batch, out_row, out_batch, n_mask);
-  return cudaGetLastError();
-}
-
-// The two passes at n = 2^12 (64 × 64): x -> scratch (with the twiddle),
-// scratch -> out.
-template <bool INV>
-cudaError_t launch_base_rows_two_pass(const uint64_t* x, const uint64_t* tw,
-                                      uint64_t* scratch, uint64_t* out, long long lanes,
-                                      cudaStream_t s) {
-  constexpr long long NA = 64, NB = 64;
-  cudaError_t e = launch_pass<6, INV, true>(x, tw, scratch, lanes, NB, NB * lanes, lanes,
-                                            NB * lanes, lanes, 4095, s);
-  if (e != cudaSuccess) return e;
-  return launch_pass<6, INV, false>(scratch, tw, out, lanes, NA, lanes, NB * lanes,
-                                    NA * lanes, lanes, 4095, s);
+size_t smem_bytes(int row_bits, int log_tile) {
+  return ((size_t)1 << row_bits) * ((size_t)(1 << log_tile) + 1) * sizeof(uint64_t);
 }
 
 }  // namespace
@@ -367,9 +371,11 @@ extern "C" int gl_base_grid(const void* y, const void* tw, void* out, int bits2,
   return (int)cudaGetLastError();
 }
 
-// tw: the stage twiddles (bits <= kRegMaxBits) or w_n^k, k < n (above).
-extern "C" int gl_base_rows(const void* x, const void* tw, void* out, int bits,
-                            long long lanes, int log_tile, int inverse, void* stream) {
+
+// tw: the stage twiddles (bits <= kRegMaxBits) or w_n^k, k < n (above);
+// y: a scratch array of n × lanes words for bits > 6 (else unused).
+extern "C" int gl_base_rows(const void* x, const void* tw, void* y, void* out, int bits,
+                            long long lanes, int inverse, void* stream) {
   if (lanes <= 0 || bits < 1 || bits > 12) return (int)cudaErrorInvalidValue;
   const uint64_t* xi = (const uint64_t*)x;
   const uint64_t* twi = (const uint64_t*)tw;
@@ -384,19 +390,7 @@ extern "C" int gl_base_rows(const void* x, const void* tw, void* out, int bits,
     default: break;
   }
   static_assert(kRegMaxBits == 5, "the switch above covers bits 1..kRegMaxBits");
-  return (int)(inverse ? launch_base_rows_radix<true>(bits, xi, twi, o, lanes, log_tile, s)
-                       : launch_base_rows_radix<false>(bits, xi, twi, o, lanes, log_tile, s));
-}
-
-// The two-pass comparison at 2^12 rows: tw = w_n^k, scratch of n × lanes.
-extern "C" int gl_base_rows_two_pass(const void* x, const void* tw, void* scratch, void* out,
-                                     long long lanes, int inverse, void* stream) {
-  if (lanes <= 0) return (int)cudaErrorInvalidValue;
-  const uint64_t* xi = (const uint64_t*)x;
-  const uint64_t* twi = (const uint64_t*)tw;
-  uint64_t* sc = (uint64_t*)scratch;
-  uint64_t* o = (uint64_t*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(inverse ? launch_base_rows_two_pass<true>(xi, twi, sc, o, lanes, s)
-                       : launch_base_rows_two_pass<false>(xi, twi, sc, o, lanes, s));
+  uint64_t* yi = (uint64_t*)y;
+  return (int)(inverse ? launch_base_rows_radix<true>(bits, xi, twi, yi, o, lanes, s)
+                       : launch_base_rows_radix<false>(bits, xi, twi, yi, o, lanes, s));
 }

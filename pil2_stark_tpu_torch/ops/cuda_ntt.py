@@ -11,10 +11,12 @@ PyTorch version.
     base of the row-major route — a length-n DIT along axis 0 of an (n, L)
     array, n = 2^1..2^12, any L.  Bound on the card: bytes (read once,
     write once); n <= 32 runs in registers, larger n as n = NA·NB
-    (``radix_split``): NA-point transforms in registers, the twiddle
-    w_n^(o1·i2) (``radix_twiddles``), one exchange through shared memory,
-    NB-point transforms in registers.  Transforms of up to 64 points take
-    power-of-two stage twiddles (``pow2_exponents``), no general product.
+    (``radix_split``) in two launches through a scratch array: NA-point
+    transforms in registers times the twiddle w_n^(o1·i2)
+    (``radix_twiddles``), then NB-point transforms in registers (n = 64:
+    one launch).  Transforms of up to 64 points take power-of-two stage
+    twiddles (``pow2_exponents``): shifts, or for 2^e with e >= 64 one
+    product by a constant.
 
 Unlike the Pallas kernels, all three take natural-order input (the gather
 is fused into the kernels' loads) and return canonical values.  The
@@ -22,7 +24,8 @@ inverse direction runs inverted roots with no 1/n.
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches the kernel (building it at first use) or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its kernel launches in ``<wrapper>.launches`` (``base_rows``: two
+for n > 64, and by shape in ``base_rows.shapes``).
 """
 from __future__ import annotations
 
@@ -110,10 +113,8 @@ def _lib():
         lib.gl_level_planar.restype = ci
         lib.gl_base_grid.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.gl_base_grid.restype = ci
-        lib.gl_base_rows.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, ci, ci, vp]
+        lib.gl_base_rows.argtypes = [vp, vp, vp, vp, ci, ctypes.c_longlong, ci, vp]
         lib.gl_base_rows.restype = ci
-        lib.gl_base_rows_two_pass.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, vp]
-        lib.gl_base_rows_two_pass.restype = ci
         lib._typed = True
     return lib
 
@@ -208,9 +209,11 @@ def base_rows_plain(x, bits: int, inverse: bool) -> torch.Tensor:
 
 
 def radix_split(bits: int) -> tuple[int, int]:
-    """(LA, LB) of B1's radix regime: n = 2^bits = NA·NB, each at most 64
-    (csrc/ntt.cu, launch_base_rows_radix's switch)."""
-    return (bits + 1) // 2, bits // 2
+    """(LA, LB) of B1's radix regime: n = 2^bits = NA·NB, each at most 64;
+    pass 1 runs NB batches of NA-point transforms, pass 2 NA batches of
+    NB-point ones (csrc/ntt.cu, launch_base_rows_radix; n = 64 is (0, 6),
+    pass 2 alone)."""
+    return (0, 6) if bits == 6 else (bits - bits // 2, bits // 2)
 
 
 def pow2_exponents(bits: int, inverse: bool) -> np.ndarray:
@@ -226,21 +229,14 @@ def pow2_exponents(bits: int, inverse: bool) -> np.ndarray:
 
 
 def radix_twiddles(bits: int, inverse: bool, device) -> torch.Tensor:
-    """w_n^k, k < n = 2^bits: B1's radix regime takes w_n^(o1·i2) from it."""
+    """w_n^k, k < n = 2^bits: pass 1 of B1's radix regime takes
+    w_n^(o1·i2) from it."""
     key = ("pow", bits, inverse, str(device))
     t = _TW_CACHE.get(key)
     if t is None:
         t = gl.powers(gl64.w_inv(bits) if inverse else gl64.w(bits), 1 << bits, device)
         _TW_CACHE[key] = t
     return t
-
-
-def radix_tile(bits: int, lanes: int) -> int:
-    """Lanes per block in the radix regime: blocks of max(NA, NB)·tile
-    threads, 128 when a thread holds 64 values, else 256."""
-    n_max = 1 << max(radix_split(bits))
-    threads = 128 if n_max == 64 else 256
-    return min(threads // n_max, 1 << (lanes - 1).bit_length())
 
 
 def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
@@ -253,18 +249,23 @@ def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
     lanes = x.shape[1]
     _check(x, (1 << bits, lanes), "base_rows x")
     out = torch.empty_like(x)
+    y = None
     if bits <= _REG_MAX_BITS:
-        tw, tile = stage_twiddles(bits, inverse, x.device), 1
+        tw = stage_twiddles(bits, inverse, x.device)
     else:
-        tw, tile = radix_twiddles(bits, inverse, x.device), radix_tile(bits, lanes)
-    rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), out.data_ptr(), bits, lanes,
-                             tile.bit_length() - 1, int(inverse), _stream(x))
+        tw = radix_twiddles(bits, inverse, x.device)
+        if radix_split(bits)[0]:
+            y = torch.empty_like(x)
+    rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), 0 if y is None else y.data_ptr(),
+                             out.data_ptr(), bits, lanes, int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gl_base_rows launch failed: CUDA error {rc}")
-    base_rows.launches += 1
-    base_rows.shapes[(1 << bits, lanes)] = base_rows.shapes.get((1 << bits, lanes), 0) + 1
+    launches = 1 if y is None else 2
+    base_rows.launches += launches
+    key = (1 << bits, lanes)
+    base_rows.shapes[key] = base_rows.shapes.get(key, 0) + launches
     return out
 
 
 base_rows.launches = 0
-base_rows.shapes = {}  # (rows, lanes) -> launches
+base_rows.shapes = {}  # (rows, lanes) -> kernel launches

@@ -58,14 +58,14 @@ def test_base_grid_single_pass_equals_plain(card, bits):
                        cuda_ntt.base_grid_plain(x, bits, 3, False))
 
 
-@pytest.mark.parametrize("bits", [1, 3, 7, 12])
-@pytest.mark.parametrize("lanes", ["one", "pow2", "odd"])
+@pytest.mark.parametrize("bits", range(1, 13))
+@pytest.mark.parametrize("lanes", ["one", "four", "pow2", "odd"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_base_rows_equals_plain(card, bits, lanes, inverse):
-    """B1 in both regimes (registers up to 2^5 rows, a shared tile above)
-    with one lane, 3·2^k lanes (the FRI folds) and an odd count that leaves
-    a ragged tile."""
-    n_lanes = {"one": 1, "pow2": 3 << 9, "odd": 1001}[lanes]
+    """B1 in both regimes (registers up to 2^5 rows, above them every
+    split of the radix passes) with one lane, four, 3·2^k lanes (the FRI
+    folds) and an odd count that leaves a ragged block."""
+    n_lanes = {"one": 1, "four": 4, "pow2": 3 << 9, "odd": 1001}[lanes]
     x = _rand((1 << bits, n_lanes), bits + n_lanes, card)
     assert torch.equal(cuda_ntt.base_rows(x, bits, inverse),
                        cuda_ntt.base_rows_plain(x, bits, inverse))
@@ -85,7 +85,7 @@ def test_ntt_round_trip_at_2_25(card):
     x = _rand((2, 1 << 25), 25, card)
     before = cuda_ntt.base_rows.launches
     y = ntt.ntt(x, 25)
-    assert cuda_ntt.base_rows.launches == before + 3  # bases 2^12, 2^1, 2^12
+    assert cuda_ntt.base_rows.launches == before + 5  # bases 2^12 (two passes), 2^1, 2^12
     assert torch.equal(ntt.intt(y, 25), x)
     del y
     torch.cuda.empty_cache()
@@ -274,18 +274,20 @@ def test_tac_refuses_bad_inputs(card):
         torch_tac.run_kernel(prog, inputs)
 
 
-@pytest.mark.parametrize("bits", [10, 20])
-def test_xdiv_kernel_equals_plain(card, bits):
-    """T2 against its plain version; the second opening is x[5] itself, so
-    x − xi is 0 there and both give 0."""
+@pytest.mark.parametrize("bits,n_open", [(10, 2), (20, 2), (12, 16)], ids=["10", "20", "12-16"])
+def test_xdiv_kernel_equals_plain(card, bits, n_open):
+    """T2 against its plain version; the last opening is x[5] itself, so
+    x − xi is 0 there and both give 0.  16 openings: the most the kernel
+    holds (kMaxOpenings)."""
     x = _rand((1 << bits,), bits, card)
-    xis = [tuple(int(v) for v in np.random.default_rng(bits).integers(0, P, 3, dtype=np.uint64)),
-           (int(torch_gl.to_u64(x[5:6])[0]), 0, 0)]
+    rng = np.random.default_rng(bits)
+    xis = [tuple(int(v) for v in rng.integers(0, P, 3, dtype=np.uint64))
+           for _ in range(n_open - 1)] + [(int(torch_gl.to_u64(x[5:6])[0]), 0, 0)]
     before = cuda_tac.gl_xdiv.launches
     got = stark_device.compute_xdiv(x, xis)
     assert cuda_tac.gl_xdiv.launches == before + 1
     assert torch.equal(got, stark_device.compute_xdiv_plain(x, xis))
-    assert not got[1, :, 5].any() and got[1, :, 6].any()
+    assert not got[-1, :, 5].any() and got[-1, :, 6].any()
     with pytest.raises(ValueError):
         cuda_tac.gl_xdiv(x.cpu(), xis)
 

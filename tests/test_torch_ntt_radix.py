@@ -1,13 +1,13 @@
 """Kernel B1's radix regime (csrc/ntt.cu, csrc/ntt_radix.cuh) on the CPU.
 
 * A plain-torch model of the kernel's decomposition, n = NA·NB: the split of
-  ``cuda_ntt.radix_split``, the lane tiles of ``radix_tile`` (lanes past
-  the end load as zero), NA-point transforms on power-of-two twiddles from
-  ``pow2_exponents``, the twiddle w_n^(o1·i2) from ``radix_twiddles`` (the
-  table the wrapper hands the kernel), and the exchange through a flat
-  per-block array at the kernel's own offsets, o1·S + i2·tile + t with
-  S = (NB + 1)·tile.  It must equal ``base_rows_plain`` for bits 1..12 at
-  1, 4 and 1001 lanes, in both directions.
+  ``cuda_ntt.radix_split``, NA-point transforms on power-of-two twiddles
+  from ``pow2_exponents`` (each product by shifts and one reduction, as the
+  kernel's) times w_n^(o1·i2) from ``radix_twiddles`` (the
+  table the wrapper hands the kernel) into a flat scratch array, then
+  NB-point transforms, each pass at the kernel's own strides and batches.
+  It must equal ``base_rows_plain`` for bits 1..12 at 1, 4 and 1001 lanes,
+  in both directions.
 * 2^e equals every stage twiddle of a transform of up to 64 points,
   forward and inverse.
 * The header itself, built with the host's g++ through
@@ -35,12 +35,35 @@ VALUES = [0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, (1 << 63) - 1, 1 << 63
           (1 << 63) + 1, P - (1 << 32), P - 2, P - 1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """torch's threaded int64 ops are slow on a shared CPU (see
+    tests/test_torch_ntt_rows.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(shape, seed):
     a = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
     flat = a.reshape(-1)
     k = min(len(VALUES), flat.size)
     flat[:k] = np.array(VALUES[:k], dtype=np.uint64)
     return a
+
+
+def _times_pow2(v, e):
+    """v·2^e mod p, 0 <= e < 192, by shifts as the kernel does it: e < 64 a
+    128-bit shift and one reduction, 64 <= e < 96 as 2^(e−32) − 2^(e−64),
+    e >= 96 as −2^(e−96)."""
+    if e >= 96:
+        return torch_gl.neg(_times_pow2(v, e - 96))
+    if e >= 64:
+        return torch_gl.sub(_times_pow2(v, e - 32), _times_pow2(v, e - 64))
+    if e == 0:
+        return v
+    return torch_gl._reduce128(v << e, (v >> (64 - e)) & ((1 << e) - 1))
 
 
 def _dft_pow2(v, log, inverse):
@@ -51,50 +74,75 @@ def _dft_pow2(v, log, inverse):
     rest = v.shape[1:]
     for s in range(1, log + 1):
         half = 1 << (s - 1)
-        w = torch.tensor([torch_gl.i64(pow(2, int(e), P)) for e in exps[half - 1:2 * half - 1]])
         u = v.reshape(n >> s, 2, half, -1)
-        t = torch_gl.mul(u[:, 1], w[None, :, None])
+        t = torch.stack([_times_pow2(u[:, 1, j], int(e))
+                         for j, e in enumerate(exps[half - 1:2 * half - 1])], dim=1)
         v = torch.stack([torch_gl.add(u[:, 0], t), torch_gl.sub(u[:, 0], t)], dim=1)
     return v.reshape(n, *rest)
 
 
+def _pass(x, log, inverse, lanes, batches, in_row, in_batch, out_row, out_batch, tw=None):
+    """One launch of the pass kernel on flat arrays: thread (b, l) reads
+    x[b·in_batch + brev(r)·in_row + l], r < 2^log, transforms, multiplies
+    row o by tw[(o·b) mod n] if tw is given, writes out[b·out_batch +
+    o·out_row + l]."""
+    b = torch.arange(batches)[:, None, None]
+    r = torch.as_tensor(cuda_ntt.bit_reverse_indices(log))[None, :, None]
+    lane = torch.arange(lanes)[None, None, :]
+    v = x[b * in_batch + r * in_row + lane].permute(1, 0, 2)  # (r, b, lane)
+    v = _dft_pow2(v, log, inverse)
+    o = torch.arange(1 << log)[:, None]
+    if tw is not None:
+        v = torch_gl.mul(v, tw[(o * torch.arange(batches)[None, :]) % tw.numel()][:, :, None])
+    out = torch.zeros_like(x)
+    out[b * out_batch + o[None, :, :] * out_row + lane] = v.permute(1, 0, 2)
+    return out
+
+
 def radix_model(x, bits, inverse):
-    """B1 on an (n, L) int64 tensor as the kernel runs it."""
+    """B1 on an (n, L) int64 tensor as the kernel runs it: flat arrays, the
+    kernel's strides and batches, a scratch array between the passes."""
     n, lanes = x.shape
     if bits <= 5:  # the register regime: one thread holds the lane
         return _dft_pow2(torch_gl.canon(x[cuda_ntt.bit_reverse_indices(bits)]), bits, inverse)
     la, lb = cuda_ntt.radix_split(bits)
+    assert la <= 6 and lb <= 6 and la + lb == bits
     na, nb = 1 << la, 1 << lb
-    assert max(la, lb) <= 6 and na * nb == n
-    tile = cuda_ntt.radix_tile(bits, lanes)
-    blocks = -(-lanes // tile)
-    xp = torch.zeros((n, blocks * tile), dtype=torch.int64)
-    xp[:, :lanes] = torch_gl.canon(x)
+    flat = torch_gl.canon(x).reshape(-1)
+    if la == 0:
+        return _pass(flat, lb, inverse, lanes, 1, lanes, 0, lanes, 0).reshape(n, lanes)
     tw = cuda_ntt.radix_twiddles(bits, inverse, "cpu")
-    # pass A: thread (i2, t) holds rows brev(r)·NB + i2, r < NA
-    v = xp.reshape(na, nb, -1)[cuda_ntt.bit_reverse_indices(la)]
-    v = _dft_pow2(v, la, inverse)  # (o1, i2, lane)
-    o1, i2 = torch.arange(na)[:, None], torch.arange(nb)[None, :]
-    v = torch_gl.mul(v, tw[(o1 * i2) & (n - 1)][:, :, None])
-    # the exchange, per block: write (o1, i2, t), read (o1, brev(r), t)
-    stride = (nb + 1) * tile
-    t = torch.arange(tile)
-    sm = torch.zeros((blocks, na * stride), dtype=torch.int64)
-    w_idx = o1[:, :, None] * stride + i2[:, :, None] * tile + t  # (NA, NB, tile)
-    sm[:, w_idx] = v.reshape(na, nb, blocks, tile).permute(2, 0, 1, 3)
-    q = torch.arange(na)[None, :, None]
-    rev_b = torch.as_tensor(cuda_ntt.bit_reverse_indices(lb))[:, None, None]
-    v = sm[:, q * stride + rev_b * tile + t].permute(1, 2, 0, 3).reshape(nb, na, -1)
-    v = _dft_pow2(v, lb, inverse)  # (o2, o1, lane): row o1 + NA·o2
-    return v.reshape(n, -1)[:, :lanes]
+    y = _pass(flat, la, inverse, lanes, nb, nb * lanes, lanes, nb * lanes, lanes, tw)
+    return _pass(y, lb, inverse, lanes, na, lanes, nb * lanes, na * lanes, lanes).reshape(n, lanes)
+
+
+def _input_and_forward(bits, lanes):
+    """x (2^bits, lanes) with x[:, l] = base[:, l mod 7] + l, every lane
+    distinct, and its forward transform from the plain version run on the
+    (at most 7) base columns only: by linearity a lane's added constant l
+    adds n·l to its row 0 and nothing else."""
+    n = 1 << bits
+    k = min(lanes, 7)
+    base = torch_gl.from_u64(_rand((n, k), 17 * bits + lanes))
+    cols = torch.arange(lanes) % k
+    shift = torch_gl.from_u64(np.arange(lanes, dtype=np.uint64))
+    x = torch_gl.add(base[:, cols], shift[None, :])
+    want = cuda_ntt.base_rows_plain(base, bits, False)[:, cols]
+    want[0] = torch_gl.add(want[0], torch_gl.mul(shift, n))
+    return x, want
 
 
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("lanes", [1, 4, 1001])
 def test_radix_model_equals_plain(lanes, inverse):
+    """Against the plain version (run on all lanes where that is cheap);
+    the inverse transform is the forward one at rows (n − o) mod n."""
     for bits in range(1, 13):
-        x = torch_gl.from_u64(_rand((1 << bits, lanes), 17 * bits + lanes))
-        want = cuda_ntt.base_rows_plain(x, bits, inverse)
+        x, want = _input_and_forward(bits, lanes)
+        if inverse:
+            want = want[(-torch.arange(1 << bits)) % (1 << bits)]
+        if bits <= 6 or lanes <= 4:
+            assert torch.equal(want, cuda_ntt.base_rows_plain(x, bits, inverse)), f"bits {bits}"
         assert torch.equal(radix_model(x, bits, inverse), want), f"bits {bits}"
 
 
