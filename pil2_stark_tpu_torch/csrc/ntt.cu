@@ -220,9 +220,9 @@ base_rows_reg_kernel(const uint64_t* __restrict__ x,
 // [bx·128, bx·128 + 128) of batch b: a thread holds the 2^LOG values of
 // one lane at row stride in_row in registers, transforms them (dft: the
 // stage twiddles are powers of two), multiplies by w_n^(o·b) with TW (the
-// block's row of tw[k] = w_n^k, staged in shared memory: read straight
-// from tw, ptxas loaded all 63 words up front, 254 registers, two blocks
-// an SM), and stores them at row stride out_row.
+// block's row, staged in shared memory from tw[k] = w_n^k, k < n/2: read
+// straight from tw, ptxas loaded all 63 words up front, 254 registers, two
+// blocks an SM), and stores them at row stride out_row.
 // The row offsets are template arguments, so every brev_const is folded:
 // in a `#pragma unroll` loop ptxas kept the 64-value pass's bit reversal
 // as a six-trip loop before each load (2.7 ms instead of 1.5 at 3 columns).
@@ -255,7 +255,12 @@ base_rows_pass_kernel(const uint64_t* __restrict__ x, const uint64_t* __restrict
   const int b = blockIdx.y;
   __shared__ uint64_t row[1 << LOG];  // w_n^(o·b), o < 2^LOG
   if constexpr (TW) {
-    if (threadIdx.x < (1 << LOG)) row[threadIdx.x] = tw[(threadIdx.x * b) & n_mask];
+    // tw holds w_n^k for k < n/2; w_n^(k + n/2) = −w_n^k
+    if (threadIdx.x < (1 << LOG)) {
+      const int k = (threadIdx.x * b) & n_mask, half = (n_mask + 1) >> 1;
+      const uint64_t w = tw[k & (half - 1)];
+      row[threadIdx.x] = k < half ? w : (w ? gl::P - w : 0);
+    }
     __syncthreads();
   }
   if (l >= lanes) return;
@@ -372,7 +377,8 @@ extern "C" int gl_base_grid(const void* y, const void* tw, void* out, int bits2,
 }
 
 
-// tw: the stage twiddles (bits <= kRegMaxBits) or w_n^k, k < n (above);
+// tw: the stage twiddles (bits <= kRegMaxBits) or w_n^k for k < n/2, the
+// last stage's part of that table (above);
 // y: a scratch array of n × lanes words for bits > 6 (else unused).
 extern "C" int gl_base_rows(const void* x, const void* tw, void* y, void* out, int bits,
                             long long lanes, int inverse, void* stream) {

@@ -12,11 +12,11 @@ PyTorch version.
     array, n = 2^1..2^12, any L.  Bound on the card: bytes (read once,
     write once); n <= 32 runs in registers, larger n as n = NA·NB
     (``radix_split``) in two launches through a scratch array: NA-point
-    transforms in registers times the twiddle w_n^(o1·i2)
-    (``radix_twiddles``), then NB-point transforms in registers (n = 64:
-    one launch).  Transforms of up to 64 points take power-of-two stage
-    twiddles (``pow2_exponents``): shifts, or for 2^e with e >= 64 one
-    product by a constant.
+    transforms in registers times the twiddle w_n^(o1·i2) (from
+    ``radix_twiddles``, the last stage's part of the stage table), then
+    NB-point transforms in registers (n = 64: one launch).  Transforms of
+    up to 64 points take power-of-two stage twiddles (``pow2_exponents``):
+    shifts, or for 2^e with e >= 64 one product by a constant.
 
 Unlike the Pallas kernels, all three take natural-order input (the gather
 is fused into the kernels' loads) and return canonical values.  The
@@ -229,14 +229,10 @@ def pow2_exponents(bits: int, inverse: bool) -> np.ndarray:
 
 
 def radix_twiddles(bits: int, inverse: bool, device) -> torch.Tensor:
-    """w_n^k, k < n = 2^bits: pass 1 of B1's radix regime takes
-    w_n^(o1·i2) from it."""
-    key = ("pow", bits, inverse, str(device))
-    t = _TW_CACHE.get(key)
-    if t is None:
-        t = gl.powers(gl64.w_inv(bits) if inverse else gl64.w(bits), 1 << bits, device)
-        _TW_CACHE[key] = t
-    return t
+    """w_n^k for k < n/2, n = 2^bits: the last stage of stage_twiddles (a
+    view, no table of its own).  Pass 1 of B1's radix regime takes
+    w_n^(o1·i2) from it, as −w_n^(k − n/2) for k >= n/2."""
+    return stage_twiddles(bits, inverse, device)[(1 << (bits - 1)) - 1:]
 
 
 def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:

@@ -3,9 +3,10 @@
 * A plain-torch model of the kernel's decomposition, n = NA·NB: the split of
   ``cuda_ntt.radix_split``, NA-point transforms on power-of-two twiddles
   from ``pow2_exponents`` (each product by shifts and one reduction, as the
-  kernel's) times w_n^(o1·i2) from ``radix_twiddles`` (the
-  table the wrapper hands the kernel) into a flat scratch array, then
-  NB-point transforms, each pass at the kernel's own strides and batches.
+  kernel's) times w_n^(o1·i2) from ``radix_twiddles`` (the half table the
+  wrapper hands the kernel, negated for k >= n/2) into a flat scratch
+  array, then NB-point transforms, each pass at the kernel's own strides
+  and batches.
   It must equal ``base_rows_plain`` for bits 1..12 at 1, 4 and 1001 lanes,
   in both directions.
 * 2^e equals every stage twiddle of a transform of up to 64 points,
@@ -111,7 +112,8 @@ def radix_model(x, bits, inverse):
     flat = torch_gl.canon(x).reshape(-1)
     if la == 0:
         return _pass(flat, lb, inverse, lanes, 1, lanes, 0, lanes, 0).reshape(n, lanes)
-    tw = cuda_ntt.radix_twiddles(bits, inverse, "cpu")
+    tw = cuda_ntt.radix_twiddles(bits, inverse, "cpu")  # w_n^k, k < n/2
+    tw = torch.cat([tw, torch_gl.neg(tw)])  # the kernel's w_n^(k + n/2) = −w_n^k
     y = _pass(flat, la, inverse, lanes, nb, nb * lanes, lanes, nb * lanes, lanes, tw)
     return _pass(y, lb, inverse, lanes, na, lanes, nb * lanes, na * lanes, lanes).reshape(n, lanes)
 
