@@ -9,8 +9,13 @@
   64-point passes in a block and exchanges the values through shared
   memory, with 2- and 4-lane tiles (128 and 256 threads; 66,560 and
   133,120 bytes of shared memory).
+  Beside them: a copy of the same bytes (``torch.clone``) and each pass's
+  own time (``torch.profiler``).
 * T2 (``cuda_tac.gl_xdiv``) at 2^22 and 2^25 points with two openings:
   csrc/tac.cu built with 8, 12, 16 and 32 norms per thread (kBatch).
+* The SASS of the kept kernels' forward 64-point passes and of T2 at two
+  openings (cuobjdump): instructions per thread, those of them that issue
+  to the integer ALU pipe and the IMADs.
 
 Every variant is held against the plain version (bit for bit) before it
 is timed with CUDA events.  Each prints one JSON line; then the card's
@@ -19,9 +24,14 @@ name and power limit.  Needs one CUDA card; imports nothing of JAX.
 from __future__ import annotations
 
 import ctypes
+import subprocess
 import sys
 
 import chip_smoke as c
+
+# SASS that issues to the integer ALU pipe (64 lanes a clock on each SM);
+# IMAD and its forms issue to the multiply-add pipe
+ALU_OPS = ("IADD3", "ISETP", "SEL", "SHF", "LOP3", "LEA", "VIADD", "PRMT", "IABS")
 
 # B1 in one launch at n = 4096 = 64 × 64: thread (i2, t) of a block of
 # 64·tile threads loads x[i1·64 + i2] of lane t (i1 bit-reversed),
@@ -132,6 +142,33 @@ def _build(texts):
             for key, name in names.items()}
 
 
+def sass_rows():
+    """Static SASS per thread of B1's forward passes at 4096 rows (64
+    elements a thread) and of T2 at two openings (8 points a thread)."""
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    tool = c.cuobjdump()
+    if tool is None:
+        raise SystemExit("no cuobjdump on this machine")
+    for lib_name, kernel, label, per in (
+            ("ntt", "base_rows_pass_kernelILi6ELb0ELb1ELb1E", "B1 pass 1", 64),
+            ("ntt", "base_rows_pass_kernelILi6ELb0ELb0ELb0E", "B1 pass 2", 64),
+            ("tac", "xdiv_kernelILi2E", "T2, 2 openings", 8)):
+        cuda_build.build([lib_name])
+        out = subprocess.run([tool, "-sass", str(cuda_build.library_path(lib_name))],
+                             capture_output=True, text=True, timeout=300, check=True).stdout
+        ops, inside = [], False
+        for ln in out.splitlines():
+            if "Function :" in ln:
+                inside = kernel in ln
+            elif inside and (m := c.SASS_LINE.search(ln)):
+                ops.append(m[2].split(".")[0])
+        alu = sum(op in ALU_OPS for op in ops)
+        imad = sum(op == "IMAD" for op in ops)
+        c.emit({"sass": label, "per_thread": len(ops), "alu": alu, "imad": imad,
+                "elements_per_thread": per, "alu_per_element": alu / per})
+
+
 def b1_rows(device, built):
     import torch
 
@@ -152,6 +189,16 @@ def b1_rows(device, built):
                "two_passes_ms": c.cuda_ms(lambda: cuda_ntt.base_rows(x, 12, False), 20)}
         if not torch.equal(cuda_ntt.base_rows(x, 12, False), want):
             raise SystemExit("B1 two passes differ from the plain version")
+        row["copy_ms"] = c.cuda_ms(lambda: x.clone(), 20)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                cuda_ntt.base_rows(x, 12, False)
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+            if "base_rows_pass_kernel" in ev.key and us:
+                which = "pass1" if ", true, true>" in ev.key else "pass2"
+                row[f"{which}_ms"] = us / ev.count / 1e3
         for log_tile in (1, 2):
             out = torch.empty_like(x)
 
@@ -238,6 +285,7 @@ def main():
         return 2
     device = torch.device("cuda", 0)
     built = _build({"one_pass": ONE_PASS, **{f"t2_{k}": v for k, v in t2_sources().items()}})
+    sass_rows()
     b1_rows(device, built["one_pass"])
     t2_rows(device, {int(k[3:]): v for k, v in built.items() if k.startswith("t2_")})
     print(c.card_line(), flush=True)
