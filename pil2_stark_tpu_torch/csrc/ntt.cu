@@ -30,7 +30,7 @@
 // B1.  Bound on the H100: bytes, 2·8·n·L (0.481 / 0.321 / 0.160 ms for the
 // 4096-row bases of a 2^25-point transform of 3 / 2 / 1 columns).  Close
 // behind them is the integer ALU pipe, 64 lanes a clock on each SM: a
-// Goldilocks add takes 7 ALU instructions, a sub 5, a reduction about 10.
+// canonical Goldilocks add, sub or reduction is 5–15 ALU instructions.
 // The design:
 //   * n <= 32: one thread per lane holds its n values in registers and
 //     runs every stage there; a warp's loads and stores of a row are 32
@@ -43,21 +43,20 @@
 //     block stages in shared memory; pass 2 transforms the NB values of
 //     batch o1 and stores X[o1 + NA·o2] from registers.  Every stage
 //     twiddle of a transform of up to 64 points is a power of two
-//     (ntt_radix.cuh): its product is two 32 × 32 multiply-adds, which
-//     issue to the multiply-add pipe, and one reduction, so a 4096-point
+//     (ntt_radix.cuh): its product is a shift done as two 32 × 32
+//     multiply-adds, which issue to the multiply-add pipe, and one
+//     reduction (for 2^e with e >= 64, one product by a constant), so a 4096-point
 //     transform takes one general product per element (the twiddle)
 //     instead of six.  A warp reads and writes 256 contiguous bytes of a
 //     row.  Three 128-thread blocks share an SM (about 166 registers).
 //     The floor is twice the byte bound (the scratch array is written and
-//     read once more); at 3 columns pass 1 runs at 1.35× a copy of its
+//     read once more); at 3 columns pass 1 runs at 1.36× a copy of its
 //     bytes and is held by its ALU stream (about 71 ALU instructions per
-//     element), pass 2 at 1.13× (55).  Two designs measured slower at 4096
-//     rows (PERF.md §6): both passes in one block with the exchange
-//     through shared memory (a 4-lane tile holds 128 KiB, so one block of
-//     8 warps per SM, and its phases do not overlap), and both passes in
-//     one launch over 256-lane chunks whose intermediate stays in L2 (its
-//     pass-2 blocks wait on their chunk's pass 1).  n = 64 is pass 2's
-//     kernel alone.
+//     element), pass 2 at 1.13× (55).  Both passes in one block with the
+//     exchange through shared memory measured 2.9× slower at 4096 rows: a
+//     4-lane tile holds 128 KiB, so one block of 8 warps per SM whose
+//     phases do not overlap (kernel_designs.py, PERF.md §6).  n = 64 is
+//     pass 2's kernel alone.
 // Offsets are 64-bit: the 2-point base of a 2^25 transform spans 3·2^25
 // words.
 #include <cuda_runtime.h>
@@ -221,11 +220,11 @@ base_rows_reg_kernel(const uint64_t* __restrict__ x,
 // one lane at row stride in_row in registers, transforms them (dft: the
 // stage twiddles are powers of two), multiplies by w_n^(o·b) with TW (the
 // block's row, staged in shared memory from tw[k] = w_n^k, k < n/2: read
-// straight from tw, ptxas loaded all 63 words up front, 254 registers, two
-// blocks an SM), and stores them at row stride out_row.
+// straight from tw, ptxas loaded all 63 words up front and the pass lost
+// a block per SM), and stores them at row stride out_row.
 // The row offsets are template arguments, so every brev_const is folded:
 // in a `#pragma unroll` loop ptxas kept the 64-value pass's bit reversal
-// as a six-trip loop before each load (2.7 ms instead of 1.5 at 3 columns).
+// as a six-trip loop before each load.
 template <int LOG, bool CANON, int... R>
 __device__ __forceinline__ void load_rows(uint64_t* v, const uint64_t* src, long long in_row,
                                           std::integer_sequence<int, R...>) {
