@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """A/B of checkouts on one card: kernel B4's time, kernel T1's time on the Q
 and FRI programs of both proves, kernel B1's at the fibonacci 2^25 prove's
-shapes and T2's at 2^22 and 2^25 points, and the fibonacci 2^22 / ext 2^25
+shapes, B2's and B3's at the planar transforms of both proves (15 × 2^22
+forward, 15 × 2^20 and 3 × 2^22 inverse) and T2's at 2^22 and 2^25
+points, and the fibonacci 2^22 / ext 2^25
 prove (its phases and per-phase peak memory), one process per checkout, in
 the order given.
 
@@ -15,8 +17,9 @@ program, the setup's programs (``torch_tac.build_programs``), so no compile
 falls inside a timed prove; it times its ``cuda_poseidon.permute`` on 2^22
 and 2^25 random states with CUDA events, its T1 on the all-gadgets 2^22
 and fibonacci 2^25 Q and FRI programs with its own ``chip_smoke._tac_rows``
-(which also holds T1 against ``run_plain``), its B1 and T2 with its own
-``_b1_rows`` and ``_xdiv_row`` (each held against its plain version), then
+(which also holds T1 against ``run_plain``), its B1, B2, B3 and T2 with
+its own ``_b1_rows``, ``_ntt_rows`` and ``_xdiv_row`` (each held against
+its plain version), then
 runs its own
 ``chip_smoke.phase_prove`` on setups/fibonacci_22.json (cold and warm
 prove, verify) with the launch counters of its own
@@ -68,12 +71,18 @@ b1 = {{}}
 for r in c._b1_rows(dev):
     assert r["max_abs_err"] == 0, r
     b1["{{n}}x{{lanes}}".format(**r["shape"])] = r["ms"]
+b23 = {{}}
+for bits, cols, inverse in ((22, 15, False), (20, 15, True), (22, 3, True)):
+    for r in c._ntt_rows(dev, bits, cols, inverse, "ab"):
+        assert r["max_abs_err"] == 0, r
+        b23["{{}} {{}}x2^{{}}{{}}".format(r["name"], cols, bits, " inverse" if inverse else "")] = r["ms"]
 t2 = {{}}
 for bits in (22, 25):
     r = c._xdiv_row(dev, bits, "{SETUP}")
     assert r["max_abs_err"] == 0, r
     t2[bits] = r["ms"]
-print(json.dumps({{"b4_ms": ms, "t1_ms": t1, "b1_ms": b1, "t2_ms": t2, "build_s": build_s}}),
+print(json.dumps({{"b4_ms": ms, "t1_ms": t1, "b1_ms": b1, "b2_b3_ms": b23, "t2_ms": t2,
+                  "build_s": build_s}}),
       flush=True)
 if hasattr(c, "prove_counters"):
     counters = c.prove_counters()
@@ -95,7 +104,7 @@ def run_tree(root: str) -> dict:
     phases = {k: v for k, v in prove["phases_warm_s"].items()
               if any(p in k for p in PHASES)}
     return {"tree": os.path.abspath(root), "b4_ms": b4["b4_ms"], "t1_ms": b4["t1_ms"],
-            "b1_ms": b4["b1_ms"], "t2_ms": b4["t2_ms"],
+            "b1_ms": b4["b1_ms"], "b2_b3_ms": b4["b2_b3_ms"], "t2_ms": b4["t2_ms"],
             "build_s": b4["build_s"], "verified": prove["verified"],
             "cold_s": prove["cold_s"], "warm_s": prove["warm_s"],
             "phases_warm_s": phases, "peak_device_bytes": prove["peak_device_bytes"],

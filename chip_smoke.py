@@ -8,13 +8,16 @@ Phases, each printing one JSON line:
                    generated for each TAC program of both proves (one nvcc
                    per source, all in parallel); registers and spills from
                    ptxas (B1's 64-point passes and T2 at two openings in
-                   their own entry), and SASS instructions per permutation by
+                   their own entry, B2's and B3's passes at the planar
+                   transforms of both proves in another), and SASS
+                   instructions per permutation by
                    class (cuobjdump) of B4 and of the schedule before it,
                    which X1 still runs;
   2. kernels     — run each kernel at the shapes each prove path gives it
                    (B2 level_planar and B3 base_grid at the widest planar
-                   transforms, B4 Poseidon at the leaf batch of each tree,
-                   B1 base_rows at the FRI fold and the two bases of each
+                   transforms, with each pass's ptxas counts, B4 Poseidon
+                   at the leaf batch of each tree, B1 base_rows at the FRI
+                   fold and the two bases of each
                    2^25 transform of the prove, T1 tac_program on each TAC
                    program of both proves at its size, with its ptxas
                    counts, nvcc seconds and SASS per row, T2 gl_xdiv with
@@ -45,7 +48,8 @@ Phases, each printing one JSON line:
 In each prove phase the kernels' launch counters are zeroed just before the
 cold prove and read just after it, and every kernel must have launched (T1
 three times, once per program, and T2 once); B1's kernel launches are also
-reported by shape (two per base of more than 64 rows).
+reported by shape (two per base of more than 64 rows).  B2 and B3 count
+two launches per call above 2^6 points (their two passes).
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
 card; imports nothing of JAX.
@@ -100,6 +104,9 @@ TOOL_BLOCKS = (512, 2048)  # run_variant's and run_sustained's block
 X1_BITS = (14, 20)  # exp_stream.main's check size and its largest timed size
 X2_SRC = "pil2_stark_tpu_torch/csrc/poseidon_variants.cu"
 X1_SRC = "pil2_stark_tpu_torch/csrc/poseidon_stream.cu"
+# (bits, inverse) of the planar transforms timed in the kernels phase: the
+# all-gadgets 2^22 LDE and 2^20 iNTT, fibonacci's 2^22 iNTT
+PLANAR_SHAPES = ((N_BITS + 2, False), (N_BITS, True), (LARGE_N_BITS, True))
 CORNERS = [0, 1, 2, P - 1, P - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
            (1 << 63) - 1, 1 << 63, P - (1 << 32), P - (1 << 32) - 1]
 
@@ -179,10 +186,12 @@ def ptxas_summary(log: str) -> list:
             u = re.search(r"tac_seg(\d+)", name)
             x = re.search(r"xdiv_kernelILi(\d+)E", name)
             b = re.search(r"base_rows_pass_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            lv = re.search(r"level_pass_kernelILi(\d)ELi(\d+)ELb(\d)ELb(\d)E", name)
             label = (f"variant_kernel<sq={t[1]},lazy={t[2]},probe={t[3]},ns={t[4]}>" if t
                      else f"tac_seg{u[1]}" if u
                      else f"xdiv_kernel<{x[1]}>" if x
                      else f"base_rows_pass<{b[1]},inv={b[2]},tw={b[3]},canon={b[4]}>" if b
+                     else f"level_pass<{lv[1]},ta={lv[2]},inv={lv[3]},canon={lv[4]}>" if lv
                      else name)
             out.append([label, int(m.group(1)), *spill, stack])
             name = None
@@ -327,8 +336,13 @@ def phase_build():
     # B1's radix passes at 4096 rows and T2 at the proves' two openings
     b1_t2 = {e[0]: e[1:] for name in ("ntt", "tac") for e in ptxas[name]
              if e[0].startswith("base_rows_pass<6") or e[0] == "xdiv_kernel<2>"}
+    # B2's and B3's passes at the planar transforms of both proves
+    b2_b3 = {f"{k} {bits}{' inverse' if inverse else ''} {p}": _ptxas(label, "ntt")
+             for bits, inverse in PLANAR_SHAPES
+             for k, passes in planar_passes(bits, inverse).items()
+             for p, label in passes.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": times,
-          "ptxas": ptxas, "b1_t2_ptxas": b1_t2, "b4_sass": sass})
+          "ptxas": ptxas, "b1_t2_ptxas": b1_t2, "b2_b3_ptxas": b2_b3, "b4_sass": sass})
 
 
 def phase_kernels(device):
@@ -362,6 +376,32 @@ def phase_kernels(device):
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     torch.cuda.empty_cache()
     return rows
+
+
+def radix_passes(bits, inverse) -> dict:
+    """ptxas labels of B1's passes for a 2^bits-row transform (bits > 5),
+    as csrc/ntt.cu launch_radix runs them; B3 runs the same passes."""
+    from pil2_stark_tpu_torch.ops import cuda_ntt
+
+    la, lb = cuda_ntt.radix_split(bits)
+    inv = int(inverse)
+    out = {"pass 1": f"base_rows_pass<{la},inv={inv},tw=1,canon=1>"} if la else {}
+    out["pass 2"] = f"base_rows_pass<{lb},inv={inv},tw=0,canon={0 if la else 1}>"
+    return out
+
+
+def planar_passes(bits, inverse) -> dict:
+    """{"B2": labels, "B3": labels} of a planar transform of 2^bits points
+    (12 < bits <= 24), as ops/ntt.py::planar_ntt splits it."""
+    from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+
+    bits1 = ntt.split_bits(bits)
+    la, lb = cuda_ntt.radix_split(bits1)
+    inv = int(inverse)
+    b2 = {"pass 1": f"base_rows_pass<{la},inv={inv},tw=1,canon=1>"} if la else {}
+    b2["pass 2"] = (f"level_pass<{lb},ta={cuda_ntt.LEVEL_OA if la else 1},inv={inv},"
+                    f"canon={0 if la else 1}>")
+    return {"B2": b2, "B3": radix_passes(bits - bits1, inverse)}
 
 
 def _ntt_rows(device, bits, n_cols, inverse, path):
@@ -398,6 +438,9 @@ def _ntt_rows(device, bits, n_cols, inverse, path):
                     lambda: cuda_ntt.base_grid_plain(y_k, bits2, n_cols, inverse),
                     muls3 * IMAD_PER_GL_MUL, bytes3, shape, path),
     ]
+    for row, passes in zip(rows, planar_passes(bits, inverse).values()):
+        row["passes"] = len(passes)
+        row["ptxas"] = {p: _ptxas(label, "ntt") for p, label in passes.items()}
     del x, y_k
     torch.cuda.empty_cache()
     return rows
@@ -453,11 +496,8 @@ def _b1_rows(device):
                           n * lanes * bits / 2 * IMAD_PER_GL_MUL, 2 * n * lanes * 8,
                           {"n": n, "lanes": lanes, "inverse": inverse}, LARGE_SETUP)
         if bits > 5:  # the radix regime's passes (ops/cuda_ntt.py::radix_split)
-            la, lb = cuda_ntt.radix_split(bits)
-            inv = int(inverse)
-            row["ptxas"] = {f"pass {k}": _ptxas(f"base_rows_pass<{log},inv={inv},tw={tw},canon={cn}>",
-                                                "ntt")
-                            for k, log, tw, cn in ((1, la, 1, 1), (2, lb, 0, 0)) if log}
+            row["ptxas"] = {p: _ptxas(label, "ntt")
+                            for p, label in radix_passes(bits, inverse).items()}
         rows.append(row)
         del x
         torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Designs measured beside the kept kernels B1 and T2, on one card.
+"""Designs measured beside the kept kernels B1, B2 and T2, on one card.
 
     python3 kernel_designs.py
 
@@ -13,6 +13,15 @@
   own time (``torch.profiler``).
 * T2 (``cuda_tac.gl_xdiv``) at 2^22 and 2^25 points with two openings:
   csrc/tac.cu built with 8, 12, 16 and 32 norms per thread (kBatch).
+* B2 (``cuda_ntt.level_planar``) and B3 (``cuda_ntt.base_grid``) at the
+  planar transforms of both proves (chip_smoke.PLANAR_SHAPES): each
+  pass's own time (``torch.profiler``) beside a copy of the same bytes;
+  and B2's last pass built with 2, 8 and 16 consecutive oa per block
+  (kLevelOa; kept: 4) and with the level twiddle read from the table for
+  every NB or formed in registers, v[ob]·t·s^ob from two words of the
+  table (t = w_N^(oa·i2), s = w_N^(NA·i2)), for every NB (kept: formed
+  up to NB = 16, read above), each launched through the same call as the
+  kept kernel, which is timed before and after them.
 * The SASS of the kept kernels' forward 64-point passes and of T2 at two
   openings (cuobjdump): instructions per thread, those of them that issue
   to the integer ALU pipe and the IMADs.
@@ -128,6 +137,10 @@ extern "C" int one_pass(const void* x, const void* tw, void* out, long long lane
 """
 
 T2_BATCH_LINE = "constexpr int kBatch = 16;"
+LEVEL_OA = 4  # csrc/ntt.cu kLevelOa, the kept value
+LEVEL_OA_LINE = f"constexpr int kLevelOa = {LEVEL_OA};"
+LEVEL_CHAIN_LOG = 4  # csrc/ntt.cu kLevelChainLog, the kept value
+LEVEL_CHAIN_LINE = f"constexpr int kLevelChainLog = {LEVEL_CHAIN_LOG};"
 
 
 def _build(texts):
@@ -277,6 +290,95 @@ def t2_rows(device, built):
         torch.cuda.empty_cache()
 
 
+def b2_sources():
+    """csrc/ntt.cu with B2's last pass changed: kLevelOa 2, 8 and 16; the
+    level twiddle read from the table for every NB (kLevelChainLog 0) or
+    formed in registers for every NB (6)."""
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    source = (cuda_build.CSRC / "ntt.cu").read_text()
+    for line in (LEVEL_OA_LINE, LEVEL_CHAIN_LINE):
+        if line not in source:
+            raise SystemExit(f"csrc/ntt.cu no longer has {line!r}")
+    out = {f"oa{ta}": source.replace(LEVEL_OA_LINE, f"constexpr int kLevelOa = {ta};")
+           for ta in (2, 4, 8, 16) if ta != LEVEL_OA}
+    out.update({name: source.replace(LEVEL_CHAIN_LINE, f"constexpr int kLevelChainLog = {log};")
+                for name, log in (("table", 0), ("chain", 6))})
+    return out
+
+
+def _pass_times(prof, names):
+    """{kernel name: ms per launch} from a torch.profiler run."""
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        for key, pattern in names.items():
+            if pattern(ev.key) and us:
+                out[key] = out.get(key, 0.0) + us / ev.count / 1e3
+    return out
+
+
+def b2_b3_rows(device, built):
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for lib, _ in built.values():
+        lib.gl_level_planar.argtypes = [vp, vp, vp, vp, vp, ci, ci, cl, ci, vp]
+        lib.gl_level_planar.restype = ci
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    for (bits, inverse), cols in zip(c.PLANAR_SHAPES, (15, 15, 3)):
+        n = 1 << bits
+        bits1 = ntt.split_bits(bits)
+        n1, n2 = 1 << bits1, n >> bits1
+        x = c.random_field((cols, n), 100 + bits + cols, device)
+        lt = ntt.level_twiddles(bits, bits1, inverse, device)
+        want = cuda_ntt.level_planar_plain(x, bits1, n2, cols, lt, inverse)
+        row = {"kernel": "B2/B3", "cols": cols, "n": n, "inverse": inverse,
+               "copy_ms": c.cuda_ms(lambda: x.clone(), 20),
+               "b2_ms": c.cuda_ms(lambda: cuda_ntt.level_planar(x, bits1, n2, cols, lt, inverse),
+                                  20)}
+        y = cuda_ntt.level_planar(x, bits1, n2, cols, lt, inverse)
+        if not torch.equal(y, want):
+            raise SystemExit("B2 differs from the plain version")
+        row["b3_ms"] = c.cuda_ms(lambda: cuda_ntt.base_grid(y, bits - bits1, cols, inverse), 20)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                cuda_ntt.level_planar(x, bits1, n2, cols, lt, inverse)
+                cuda_ntt.base_grid(y, bits - bits1, cols, inverse)
+            torch.cuda.synchronize()
+        row.update(_pass_times(prof, {
+            "b2_pass1_ms": lambda k: "base_rows_pass_kernel" in k and f"<{bits1 - bits1 // 2}," in k,
+            "b2_pass2_ms": lambda k: "level_pass_kernel" in k,
+            "b3_pass1_ms": lambda k: "base_rows_pass_kernel<6" in k and "true, true>" in k,
+            "b3_pass2_ms": lambda k: "base_rows_pass_kernel<6" in k and "false, false>" in k}))
+        # the kept kernel through the same call as the variants, before and
+        # after them (the wrapper allocates its output and scratch per call)
+        scratch, out = torch.empty_like(x), torch.empty_like(y)
+        tw = cuda_ntt.radix_twiddles(bits1, inverse, device)
+        kept = (cuda_ntt._lib(), [e[:4] for e in c.ptxas_summary(cuda_build.build_log("ntt"))])
+        for name, (lib, regs) in [("kept", kept), *built.items(), ("kept_again", kept)]:
+            def run():
+                rc = lib.gl_level_planar(x.data_ptr(), tw.data_ptr(), lt.data_ptr(),
+                                         scratch.data_ptr(), out.data_ptr(), bits1,
+                                         n2.bit_length() - 1, cols, int(inverse), stream)
+                if rc:
+                    raise SystemExit(f"B2 {name}: CUDA error {rc}")
+
+            out.zero_()
+            run()
+            if not torch.equal(out, want):
+                raise SystemExit(f"B2 {name} differs from the plain version")
+            row[f"b2_{name}_ms"] = c.cuda_ms(run, 20)
+            row[f"b2_{name}_ptxas"] = [r for r in regs if r[0].startswith(
+                f"level_pass<{bits1 // 2},") and f"inv={int(inverse)}" in r[0]]
+        c.emit(row)
+        del x, y, want, scratch, out
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -284,8 +386,10 @@ def main():
         print("kernel_designs.py needs a CUDA card", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    built = _build({"one_pass": ONE_PASS, **{f"t2_{k}": v for k, v in t2_sources().items()}})
+    built = _build({"one_pass": ONE_PASS, **{f"t2_{k}": v for k, v in t2_sources().items()},
+                    **{f"b2_{k}": v for k, v in b2_sources().items()}})
     sass_rows()
+    b2_b3_rows(device, {k[3:]: v for k, v in built.items() if k.startswith("b2_")})
     b1_rows(device, built["one_pass"])
     t2_rows(device, {int(k[3:]): v for k, v in built.items() if k.startswith("t2_")})
     print(c.card_line(), flush=True)

@@ -1,12 +1,6 @@
 """Kernels B1, B2 and B3 of the NTT (csrc/ntt.cu), each beside its plain
 PyTorch version.
 
-  * ``level_planar`` replaces pallas_ntt.level_planar (pallas_ntt.py:439):
-    step 1 of a four-step level — bit-reverse gather over i1, radix-2 DIT
-    over n1, the level twiddle w_N^(o1·i2), transpose to (C·n2, n1).
-  * ``base_grid`` replaces pallas_ntt.base_grid (pallas_ntt.py:497): step 2
-    — per column batch, bit-reverse gather over i2 and a length-n2 DIT
-    along the rows of a (C·n2, n1) array.
   * ``base_rows`` replaces pallas_ntt.base_ntt_brev (pallas_ntt.py:519): the
     base of the row-major route — a length-n DIT along axis 0 of an (n, L)
     array, n = 2^1..2^12, any L.  Bound on the card: bytes (read once,
@@ -17,6 +11,16 @@ PyTorch version.
     NB-point transforms in registers (n = 64: one launch).  Transforms of
     up to 64 points take power-of-two stage twiddles (``pow2_exponents``):
     shifts, or for 2^e with e >= 64 one product by a constant.
+  * ``base_grid`` replaces pallas_ntt.base_grid (pallas_ntt.py:497): step 2
+    of a four-step level — per column batch, a length-n2 DIT along the rows
+    of a (C·n2, n1) array.  It is B1's passes with a column stride: two
+    launches above 2^6 rows, one up to it (any n1, n2 = 2^0..2^12).
+  * ``level_planar`` replaces pallas_ntt.level_planar (pallas_ntt.py:439):
+    step 1 — DIT over n1 along the strided i1 axis, the level twiddle
+    w_N^(o1·i2), transpose to (C·n2, n1).  Above 2^6 it is B1's pass 1 at
+    row stride n2 into a scratch array, then a pass that runs the NB-point
+    transforms, multiplies by the level twiddle and stores the transpose
+    through shared memory; up to 2^6 that last pass alone.
 
 Unlike the Pallas kernels, all three take natural-order input (the gather
 is fused into the kernels' loads) and return canonical values.  The
@@ -24,8 +28,12 @@ inverse direction runs inverted roots with no 1/n.
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches the kernel (building it at first use) or raises.  Each wrapper
-counts its kernel launches in ``<wrapper>.launches`` (``base_rows``: two
-for n > 64, and by shape in ``base_rows.shapes``).
+counts its kernel launches in ``<wrapper>.launches`` (two when two passes
+run; ``base_rows`` also by shape in ``base_rows.shapes``).  The two-pass
+kernels take a scratch array of the input's size, allocated by the
+wrapper unless the caller hands one in (``scratch=``); ``base_grid`` may
+write its result over its input (``out=y``), which its first pass has
+read by then.  The plain versions use neither buffer.
 """
 from __future__ import annotations
 
@@ -38,9 +46,11 @@ from ..field import gl64
 from ..field import torch_gl as gl
 from ..utils import cuda_build
 
-_SMEM_WORDS = 16384  # rows × tile u64 words a block holds (128 KiB)
-_MAX_TILE = 32
 _REG_MAX_BITS = 5  # B1 runs n <= 2^5 in registers, larger n in the radix regime
+LEVEL_OA = 4  # B2's last pass: consecutive oa per block (csrc/ntt.cu kLevelOa)
+# B2's last pass forms the level twiddle from two table words up to 2^4
+# values a thread and reads one per value above (csrc/ntt.cu kLevelChainLog)
+LEVEL_CHAIN_LOG = 4
 
 
 def bit_reverse_indices(bits: int) -> np.ndarray:
@@ -90,8 +100,8 @@ def dit_brev(x: torch.Tensor, bits: int, inverse: bool) -> torch.Tensor:
     return x.reshape(*lead, n, lanes)
 
 
-def _tile(row_bits: int, lanes: int) -> int:
-    return min(_MAX_TILE, max(1, _SMEM_WORDS >> row_bits), lanes)
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _stream(t: torch.Tensor):
@@ -105,15 +115,29 @@ def _check(t: torch.Tensor, shape, what: str):
             f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
+def _check_scratch(t, like: torch.Tensor, what: str, *others) -> None:
+    """A two-pass kernel's scratch array, where the caller hands one in: as
+    many contiguous int64 words as `like` (any shape) on its device, and
+    none of the arrays the kernel reads or writes."""
+    if t is None:
+        return
+    if (t.dtype != torch.int64 or not t.is_contiguous() or t.numel() != like.numel()
+            or t.device != like.device):
+        raise ValueError(f"{what} scratch: want {like.numel()} contiguous int64 words on "
+                         f"{like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if any(o is not None and t.data_ptr() == o.data_ptr() for o in (like, *others)):
+        raise ValueError(f"{what}: the scratch array must not be an input or the output")
+
+
 def _lib():
     lib = cuda_build.lib("ntt")
     if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gl_level_planar.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gl_level_planar.argtypes = [vp, vp, vp, vp, vp, ci, ci, cl, ci, vp]
         lib.gl_level_planar.restype = ci
-        lib.gl_base_grid.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.gl_base_grid.argtypes = [vp, vp, vp, vp, ci, cl, cl, ci, vp]
         lib.gl_base_grid.restype = ci
-        lib.gl_base_rows.argtypes = [vp, vp, vp, vp, ci, ctypes.c_longlong, ci, vp]
+        lib.gl_base_rows.argtypes = [vp, vp, vp, vp, ci, cl, ci, vp]
         lib.gl_base_rows.restype = ci
         lib._typed = True
     return lib
@@ -133,8 +157,9 @@ def level_planar_plain(x, bits1: int, n2: int, n_cols: int, level_tw,
     return y.permute(0, 2, 1).reshape(n_cols * n2, n1)
 
 
-def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw,
-                 inverse: bool) -> torch.Tensor:
+def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw, inverse: bool, *,
+                 scratch=None) -> torch.Tensor:
+    _check_scratch(scratch, x, "level_planar")
     if x.device.type == "cpu":
         return level_planar_plain(x, bits1, n2, n_cols, level_tw, inverse)
     if x.device.type != "cuda":
@@ -144,15 +169,17 @@ def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw,
         raise ValueError(f"level_planar: unsupported shape n1=2^{bits1}, n2={n2}")
     _check(x, (n_cols, n1 * n2), "level_planar x")
     _check(level_tw, (n1, n2), "level_planar level_tw")
-    tile = _tile(bits1, n2)
-    tw = stage_twiddles(bits1, inverse, x.device)
+    two = radix_split(bits1)[0] > 0
+    if two and scratch is None:
+        scratch = torch.empty_like(x)
+    tw = radix_twiddles(bits1, inverse, x.device) if two else None
     out = torch.empty((n_cols * n2, n1), dtype=torch.int64, device=x.device)
     rc = _lib().gl_level_planar(
-        x.data_ptr(), tw.data_ptr(), level_tw.data_ptr(), out.data_ptr(),
-        bits1, n2.bit_length() - 1, n_cols, tile.bit_length() - 1, _stream(x))
+        x.data_ptr(), _ptr(tw), level_tw.data_ptr(), _ptr(scratch), out.data_ptr(), bits1,
+        n2.bit_length() - 1, n_cols, int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gl_level_planar launch failed: CUDA error {rc}")
-    level_planar.launches += 1
+    level_planar.launches += 2 if two else 1
     return out
 
 
@@ -173,7 +200,15 @@ def base_grid_plain(y, bits2: int, n_cols: int, inverse: bool) -> torch.Tensor:
     return dit_brev(yr, bits2, inverse).reshape(n_cols * n2, n1)
 
 
-def base_grid(y, bits2: int, n_cols: int, inverse: bool) -> torch.Tensor:
+def base_grid(y, bits2: int, n_cols: int, inverse: bool, *, scratch=None,
+              out=None) -> torch.Tensor:
+    two = radix_split(bits2)[0] > 0
+    if out is not None:
+        _check(out, y.shape, "base_grid out")
+        if out.device != y.device or (out.data_ptr() == y.data_ptr() and not two):
+            raise ValueError("base_grid: out is on another device, or is y with one pass "
+                             "(n2 <= 64)")
+    _check_scratch(scratch, y, "base_grid", out)
     if y.device.type == "cpu":
         return base_grid_plain(y, bits2, n_cols, inverse)
     if y.device.type != "cuda":
@@ -183,15 +218,16 @@ def base_grid(y, bits2: int, n_cols: int, inverse: bool) -> torch.Tensor:
     if not (0 <= bits2 <= 12) or n1 & (n1 - 1) or n1 < 1:
         raise ValueError(f"base_grid: unsupported shape n2=2^{bits2}, n1={n1}")
     _check(y, (n_cols * n2, n1), "base_grid y")
-    tile = _tile(bits2, n1)
-    tw = stage_twiddles(max(bits2, 1), inverse, y.device)
-    out = torch.empty_like(y)
-    rc = _lib().gl_base_grid(
-        y.data_ptr(), tw.data_ptr(), out.data_ptr(), bits2,
-        n1.bit_length() - 1, n_cols, tile.bit_length() - 1, _stream(y))
+    if out is None:
+        out = torch.empty_like(y)
+    if two and scratch is None:
+        scratch = torch.empty_like(y)
+    tw = radix_twiddles(bits2, inverse, y.device) if two else None
+    rc = _lib().gl_base_grid(y.data_ptr(), _ptr(tw), _ptr(scratch), out.data_ptr(), bits2, n1,
+                             n_cols, int(inverse), _stream(y))
     if rc != 0:
         raise RuntimeError(f"gl_base_grid launch failed: CUDA error {rc}")
-    base_grid.launches += 1
+    base_grid.launches += 2 if two else 1
     return out
 
 
@@ -209,11 +245,11 @@ def base_rows_plain(x, bits: int, inverse: bool) -> torch.Tensor:
 
 
 def radix_split(bits: int) -> tuple[int, int]:
-    """(LA, LB) of B1's radix regime: n = 2^bits = NA·NB, each at most 64;
-    pass 1 runs NB batches of NA-point transforms, pass 2 NA batches of
-    NB-point ones (csrc/ntt.cu, launch_base_rows_radix; n = 64 is (0, 6),
-    pass 2 alone)."""
-    return (0, 6) if bits == 6 else (bits - bits // 2, bits // 2)
+    """(LA, LB) of the radix passes (B1 above 2^5 rows, B2, B3): n = 2^bits
+    = NA·NB, each at most 64; pass 1 runs NB batches of NA-point
+    transforms, pass 2 NA batches of NB-point ones (csrc/ntt.cu,
+    split_a/split_b; up to 64 points (0, bits), pass 2 alone)."""
+    return (0, bits) if bits <= 6 else (bits - bits // 2, bits // 2)
 
 
 def pow2_exponents(bits: int, inverse: bool) -> np.ndarray:
@@ -252,7 +288,7 @@ def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
         tw = radix_twiddles(bits, inverse, x.device)
         if radix_split(bits)[0]:
             y = torch.empty_like(x)
-    rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), 0 if y is None else y.data_ptr(),
+    rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), _ptr(y),
                              out.data_ptr(), bits, lanes, int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gl_base_rows launch failed: CUDA error {rc}")

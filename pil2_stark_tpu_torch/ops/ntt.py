@@ -7,8 +7,9 @@ one column per row, the domain along the contiguous axis.  A transform of
 N = 2^bits points runs the four-step split of ``split_bits`` (one factor
 kept at 2^12 up to 2^24, halves above, as ``_split_bits`` :169 does):
 
-  bits <= 12:       one B3 pass (base_grid with n1 = 1);
-  12 < bits <= 24:  B2 over n1 = 2^(bits-12), then B3 over n2 = 2^12;
+  bits <= 12:       B3 alone (base_grid with n1 = 1);
+  12 < bits <= 24:  B2 over n1 = 2^(bits-12), then B3 over n2 = 2^12, both
+                    on B1's radix passes, sharing one scratch array;
   bits > 24:        the row route: transpose to (N, C), ``axis0_ntt``,
                     transpose back (as ``_jit_lde_planar`` :416-425 falls
                     back).
@@ -81,8 +82,11 @@ def planar_ntt(xp: torch.Tensor, bits: int, inverse: bool) -> torch.Tensor:
         return cuda_ntt.base_grid(xp.reshape(c * n, 1), bits, c, inverse).reshape(c, n)
     n2 = 1 << (bits - bits1)
     lt = level_twiddles(bits, bits1, inverse, xp.device)
-    y = cuda_ntt.level_planar(xp, bits1, n2, c, lt, inverse)
-    z = cuda_ntt.base_grid(y, bits - bits1, c, inverse)
+    # B2's scratch array serves B3 too, and B3's second pass writes over
+    # B2's output, which its first pass has read: three C·N arrays at most
+    scratch = torch.empty_like(xp)
+    y = cuda_ntt.level_planar(xp, bits1, n2, c, lt, inverse, scratch=scratch)
+    z = cuda_ntt.base_grid(y, bits - bits1, c, inverse, scratch=scratch, out=y)
     return z.reshape(c, n)
 
 
