@@ -2,8 +2,9 @@
 """A/B of checkouts on one card: kernel B4's time, kernel T1's time on the Q
 and FRI programs of both proves, kernel B1's at the fibonacci 2^25 prove's
 shapes, B2's and B3's at the planar transforms of both proves (15 × 2^22
-forward, 15 × 2^20 and 3 × 2^22 inverse) and T2's at 2^22 and 2^25
-points, and the fibonacci 2^22 / ext 2^25
+forward, 15 × 2^20 and 3 × 2^22 inverse), B3's alone as the single
+transform of up to 2^12 points (n1 = 1: 3 and 15 × 2^12, 15 × 2^10,
+forward), T2's at 2^22 and 2^25 points, and the fibonacci 2^22 / ext 2^25
 prove (its phases and per-phase peak memory), one process per checkout, in
 the order given.
 
@@ -18,8 +19,8 @@ falls inside a timed prove; it times its ``cuda_poseidon.permute`` on 2^22
 and 2^25 random states with CUDA events, its T1 on the all-gadgets 2^22
 and fibonacci 2^25 Q and FRI programs with its own ``chip_smoke._tac_rows``
 (which also holds T1 against ``run_plain``), its B1, B2, B3 and T2 with
-its own ``_b1_rows``, ``_ntt_rows`` and ``_xdiv_row`` (each held against
-its plain version), then
+its own ``_b1_rows``, ``_ntt_rows`` and ``_xdiv_row`` and its B3 at n1 =
+1 (each held against its plain version), then
 runs its own
 ``chip_smoke.phase_prove`` on setups/fibonacci_22.json (cold and warm
 prove, verify) with the launch counters of its own
@@ -76,13 +77,21 @@ for bits, cols, inverse in ((22, 15, False), (20, 15, True), (22, 3, True)):
     for r in c._ntt_rows(dev, bits, cols, inverse, "ab"):
         assert r["max_abs_err"] == 0, r
         b23["{{}} {{}}x2^{{}}{{}}".format(r["name"], cols, bits, " inverse" if inverse else "")] = r["ms"]
+small = {{}}
+for bits, cols in ((12, 3), (12, 15), (10, 15)):
+    y = c.random_field((cols << bits, 1), 11 + bits, dev)
+    assert torch.equal(cuda_ntt.base_grid(y, bits, cols, False),
+                       cuda_ntt.base_grid_plain(y, bits, cols, False))
+    small["{{}}x2^{{}}".format(cols, bits)] = c.cuda_ms(
+        lambda: cuda_ntt.base_grid(y, bits, cols, False), 20)
+    del y
 t2 = {{}}
 for bits in (22, 25):
     r = c._xdiv_row(dev, bits, "{SETUP}")
     assert r["max_abs_err"] == 0, r
     t2[bits] = r["ms"]
-print(json.dumps({{"b4_ms": ms, "t1_ms": t1, "b1_ms": b1, "b2_b3_ms": b23, "t2_ms": t2,
-                  "build_s": build_s}}),
+print(json.dumps({{"b4_ms": ms, "t1_ms": t1, "b1_ms": b1, "b2_b3_ms": b23,
+                  "b3_single_ms": small, "t2_ms": t2, "build_s": build_s}}),
       flush=True)
 if hasattr(c, "prove_counters"):
     counters = c.prove_counters()
@@ -104,7 +113,8 @@ def run_tree(root: str) -> dict:
     phases = {k: v for k, v in prove["phases_warm_s"].items()
               if any(p in k for p in PHASES)}
     return {"tree": os.path.abspath(root), "b4_ms": b4["b4_ms"], "t1_ms": b4["t1_ms"],
-            "b1_ms": b4["b1_ms"], "b2_b3_ms": b4["b2_b3_ms"], "t2_ms": b4["t2_ms"],
+            "b1_ms": b4["b1_ms"], "b2_b3_ms": b4["b2_b3_ms"],
+            "b3_single_ms": b4["b3_single_ms"], "t2_ms": b4["t2_ms"],
             "build_s": b4["build_s"], "verified": prove["verified"],
             "cold_s": prove["cold_s"], "warm_s": prove["warm_s"],
             "phases_warm_s": phases, "peak_device_bytes": prove["peak_device_bytes"],

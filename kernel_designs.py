@@ -137,10 +137,6 @@ extern "C" int one_pass(const void* x, const void* tw, void* out, long long lane
 """
 
 T2_BATCH_LINE = "constexpr int kBatch = 16;"
-LEVEL_OA = 4  # csrc/ntt.cu kLevelOa, the kept value
-LEVEL_OA_LINE = f"constexpr int kLevelOa = {LEVEL_OA};"
-LEVEL_CHAIN_LOG = 4  # csrc/ntt.cu kLevelChainLog, the kept value
-LEVEL_CHAIN_LINE = f"constexpr int kLevelChainLog = {LEVEL_CHAIN_LOG};"
 
 
 def _build(texts):
@@ -294,15 +290,18 @@ def b2_sources():
     """csrc/ntt.cu with B2's last pass changed: kLevelOa 2, 8 and 16; the
     level twiddle read from the table for every NB (kLevelChainLog 0) or
     formed in registers for every NB (6)."""
+    from pil2_stark_tpu_torch.ops import cuda_ntt
     from pil2_stark_tpu_torch.utils import cuda_build
 
     source = (cuda_build.CSRC / "ntt.cu").read_text()
-    for line in (LEVEL_OA_LINE, LEVEL_CHAIN_LINE):
+    oa_line = f"constexpr int kLevelOa = {cuda_ntt.LEVEL_OA};"
+    chain_line = f"constexpr int kLevelChainLog = {cuda_ntt.LEVEL_CHAIN_LOG};"
+    for line in (oa_line, chain_line):
         if line not in source:
             raise SystemExit(f"csrc/ntt.cu no longer has {line!r}")
-    out = {f"oa{ta}": source.replace(LEVEL_OA_LINE, f"constexpr int kLevelOa = {ta};")
-           for ta in (2, 4, 8, 16) if ta != LEVEL_OA}
-    out.update({name: source.replace(LEVEL_CHAIN_LINE, f"constexpr int kLevelChainLog = {log};")
+    out = {f"oa{ta}": source.replace(oa_line, f"constexpr int kLevelOa = {ta};")
+           for ta in (2, 4, 8, 16) if ta != cuda_ntt.LEVEL_OA}
+    out.update({name: source.replace(chain_line, f"constexpr int kLevelChainLog = {log};")
                 for name, log in (("table", 0), ("chain", 6))})
     return out
 

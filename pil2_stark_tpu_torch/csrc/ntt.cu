@@ -31,6 +31,10 @@
 //     64-point passes through a scratch array.  Up to n2 = 2^6 it is pass
 //     2's kernel alone; the single transform of at most 2^12 points
 //     (n1 = 1, n2 = 2^bits, one lane per column) runs the same passes.
+//     There each block has one live thread, so it is about twice as slow
+//     as the shared tile it replaces (0.038–0.053 against 0.022–0.026 ms
+//     at 3 and 15 × 2^12 on an H100, ab_trees.py), accepted because no
+//     prove's main path runs a transform that small.
 //   * B2 is B1's split n1 = NA·NB along the strided i1 axis: pass 1 is B1's
 //     pass 1 at row stride n2 (NA-point transforms, the inner twiddle
 //     w_n1^(oa·ib), into a scratch array); pass 2 (level_pass_kernel)
@@ -49,8 +53,8 @@
 // HBM3, 700 W): B2 0.816 ms, 2.6× its bound, B3 0.850 ms, 2.8× (the
 // shared tile they replace: 2.350 / 2.318 ms, one 512-thread block per SM
 // whose phases did not overlap); B3's pass 1 is B1's, held by its integer
-// ALU stream.  The caller may hand B2's scratch to B3 and let B3's pass 2
-// write over B2's output, which its pass 1 has read: then a planar
+// ALU stream.  planar_ntt lets B3's pass 2 write over B2's output, which
+// its pass 1 has read, so with each kernel's own scratch array a planar
 // transform holds three C·N arrays, as the shared tile did
 // (kernel_designs.py, ab_trees.py; PERF.md §6).
 //

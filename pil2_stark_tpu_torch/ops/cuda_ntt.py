@@ -30,10 +30,9 @@ A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches the kernel (building it at first use) or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (two when two passes
 run; ``base_rows`` also by shape in ``base_rows.shapes``).  The two-pass
-kernels take a scratch array of the input's size, allocated by the
-wrapper unless the caller hands one in (``scratch=``); ``base_grid`` may
-write its result over its input (``out=y``), which its first pass has
-read by then.  The plain versions use neither buffer.
+kernels take a scratch array of the input's size, which the wrapper
+allocates; ``base_grid`` may write its result over its input (``out=y``),
+which its first pass has read by then.
 """
 from __future__ import annotations
 
@@ -115,20 +114,6 @@ def _check(t: torch.Tensor, shape, what: str):
             f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
-def _check_scratch(t, like: torch.Tensor, what: str, *others) -> None:
-    """A two-pass kernel's scratch array, where the caller hands one in: as
-    many contiguous int64 words as `like` (any shape) on its device, and
-    none of the arrays the kernel reads or writes."""
-    if t is None:
-        return
-    if (t.dtype != torch.int64 or not t.is_contiguous() or t.numel() != like.numel()
-            or t.device != like.device):
-        raise ValueError(f"{what} scratch: want {like.numel()} contiguous int64 words on "
-                         f"{like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if any(o is not None and t.data_ptr() == o.data_ptr() for o in (like, *others)):
-        raise ValueError(f"{what}: the scratch array must not be an input or the output")
-
-
 def _lib():
     lib = cuda_build.lib("ntt")
     if not getattr(lib, "_typed", False):
@@ -157,9 +142,7 @@ def level_planar_plain(x, bits1: int, n2: int, n_cols: int, level_tw,
     return y.permute(0, 2, 1).reshape(n_cols * n2, n1)
 
 
-def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw, inverse: bool, *,
-                 scratch=None) -> torch.Tensor:
-    _check_scratch(scratch, x, "level_planar")
+def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw, inverse: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return level_planar_plain(x, bits1, n2, n_cols, level_tw, inverse)
     if x.device.type != "cuda":
@@ -170,8 +153,7 @@ def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw, inverse: bool, *
     _check(x, (n_cols, n1 * n2), "level_planar x")
     _check(level_tw, (n1, n2), "level_planar level_tw")
     two = radix_split(bits1)[0] > 0
-    if two and scratch is None:
-        scratch = torch.empty_like(x)
+    scratch = torch.empty_like(x) if two else None
     tw = radix_twiddles(bits1, inverse, x.device) if two else None
     out = torch.empty((n_cols * n2, n1), dtype=torch.int64, device=x.device)
     rc = _lib().gl_level_planar(
@@ -200,17 +182,17 @@ def base_grid_plain(y, bits2: int, n_cols: int, inverse: bool) -> torch.Tensor:
     return dit_brev(yr, bits2, inverse).reshape(n_cols * n2, n1)
 
 
-def base_grid(y, bits2: int, n_cols: int, inverse: bool, *, scratch=None,
-              out=None) -> torch.Tensor:
+def base_grid(y, bits2: int, n_cols: int, inverse: bool, *, out=None) -> torch.Tensor:
+    """The result goes into `out` where one is given (on the CPU too)."""
     two = radix_split(bits2)[0] > 0
     if out is not None:
         _check(out, y.shape, "base_grid out")
         if out.device != y.device or (out.data_ptr() == y.data_ptr() and not two):
             raise ValueError("base_grid: out is on another device, or is y with one pass "
                              "(n2 <= 64)")
-    _check_scratch(scratch, y, "base_grid", out)
     if y.device.type == "cpu":
-        return base_grid_plain(y, bits2, n_cols, inverse)
+        z = base_grid_plain(y, bits2, n_cols, inverse)
+        return z if out is None else out.copy_(z)
     if y.device.type != "cuda":
         raise ValueError(f"base_grid: unsupported device {y.device}")
     n2 = 1 << bits2
@@ -220,8 +202,7 @@ def base_grid(y, bits2: int, n_cols: int, inverse: bool, *, scratch=None,
     _check(y, (n_cols * n2, n1), "base_grid y")
     if out is None:
         out = torch.empty_like(y)
-    if two and scratch is None:
-        scratch = torch.empty_like(y)
+    scratch = torch.empty_like(y) if two else None
     tw = radix_twiddles(bits2, inverse, y.device) if two else None
     rc = _lib().gl_base_grid(y.data_ptr(), _ptr(tw), _ptr(scratch), out.data_ptr(), bits2, n1,
                              n_cols, int(inverse), _stream(y))

@@ -82,12 +82,10 @@ def planar_ntt(xp: torch.Tensor, bits: int, inverse: bool) -> torch.Tensor:
         return cuda_ntt.base_grid(xp.reshape(c * n, 1), bits, c, inverse).reshape(c, n)
     n2 = 1 << (bits - bits1)
     lt = level_twiddles(bits, bits1, inverse, xp.device)
-    # B2's scratch array serves B3 too, and B3's second pass writes over
-    # B2's output, which its first pass has read: three C·N arrays at most
-    scratch = torch.empty_like(xp)
-    y = cuda_ntt.level_planar(xp, bits1, n2, c, lt, inverse, scratch=scratch)
-    z = cuda_ntt.base_grid(y, bits - bits1, c, inverse, scratch=scratch, out=y)
-    return z.reshape(c, n)
+    # B3's second pass writes over B2's output, which its first pass has
+    # read, so with each kernel's scratch array three C·N arrays are live
+    y = cuda_ntt.level_planar(xp, bits1, n2, c, lt, inverse)
+    return cuda_ntt.base_grid(y, bits - bits1, c, inverse, out=y).reshape(c, n)
 
 
 def ntt(xp: torch.Tensor, bits: int) -> torch.Tensor:

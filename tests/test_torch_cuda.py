@@ -45,8 +45,8 @@ def _rand(shape, seed, device):
 def test_ntt_kernels_equal_plain(card, bits1, bits2, cols, inverse):
     """B2 and B3 (two passes above 2^6 points, pass 2 alone up to it; B2's
     last pass with n2 below a block's 32 lanes at bits2 3), then B3 again
-    with B2's scratch array and its output written over its input, as
-    planar_ntt runs them; the launches counted."""
+    with its output written over its input, as planar_ntt runs them; the
+    launches counted."""
     bits = bits1 + bits2
     x = _rand((cols, 1 << bits), bits, card)
     x[0, 4:8] = torch_gl.from_u64(np.array([P, P + 1, (1 << 64) - 1, 1 << 63],
@@ -58,11 +58,9 @@ def test_ntt_kernels_equal_plain(card, bits1, bits2, cols, inverse):
     z = cuda_ntt.base_grid(y, bits2, cols, inverse)
     want = cuda_ntt.base_grid_plain(y, bits2, cols, inverse)
     assert torch.equal(z, want)
-    scratch = torch.empty_like(x)
-    y2 = cuda_ntt.level_planar(x, bits1, 1 << bits2, cols, lt, inverse, scratch=scratch)
+    y2 = cuda_ntt.level_planar(x, bits1, 1 << bits2, cols, lt, inverse)
     two = bits2 > 6
-    z2 = cuda_ntt.base_grid(y2, bits2, cols, inverse, scratch=scratch if two else None,
-                            out=y2 if two else None)
+    z2 = cuda_ntt.base_grid(y2, bits2, cols, inverse, out=y2 if two else None)
     assert torch.equal(z2, want)
     passes = (1 + (bits1 > 6), 1 + two)
     assert (cuda_ntt.level_planar.launches - before[0],
@@ -71,16 +69,14 @@ def test_ntt_kernels_equal_plain(card, bits1, bits2, cols, inverse):
 
 
 def test_ntt_wrappers_refuse_aliased_buffers(card):
-    """A pass must not write over what it reads: B2's scratch is not x,
-    B3's scratch is neither y nor out, and out may be y only when two
-    passes run."""
+    """A pass must not write over what it reads: B3's out may be y only
+    when two passes run, and has y's shape and device."""
     x = _rand((2, 1 << 19), 19, card)
     lt = ntt.level_twiddles(19, 7, False, card)
-    with pytest.raises(ValueError):
-        cuda_ntt.level_planar(x, 7, 1 << 12, 2, lt, False, scratch=x)
     y = cuda_ntt.level_planar(x, 7, 1 << 12, 2, lt, False)
-    with pytest.raises(ValueError):
-        cuda_ntt.base_grid(y, 12, 2, False, scratch=y, out=y)
+    for bad in (torch.empty_like(x), torch.empty_like(y, device="cpu")):
+        with pytest.raises(ValueError):
+            cuda_ntt.base_grid(y, 12, 2, False, out=bad)
     small = _rand((3 << 5, 4), 5, card)
     with pytest.raises(ValueError):
         cuda_ntt.base_grid(small, 5, 3, False, out=small)

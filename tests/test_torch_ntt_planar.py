@@ -25,8 +25,8 @@ its output untouched, for bits1 in {1, 4, 6, 7, 10} with n2 = 2^12, C in
 {1, 3}, both directions, on values that are not all canonical.
 Then csrc/ntt.cu itself, built with the host's g++ through
 tests/ntt_host_shim.h (blocks in turn, a block's threads as std::threads
-meeting at a barrier): B2 then B3 as planar_ntt runs them (one scratch
-array, B3 writing over B2's output), the single transform of up to 2^12
+meeting at a barrier): B2 then B3 with one scratch array and B3
+writing over B2's output, the single transform of up to 2^12
 points and B1, each against its plain version, with the launches counted.
 Tolerance: none, bit for bit."""
 import ctypes
@@ -232,6 +232,15 @@ def test_b3_single_transform_model_equals_plain(bits2):
         assert torch.equal(got, cuda_ntt.base_grid_plain(y, bits2, cols, inverse))
 
 
+def test_level_constants_match_the_source():
+    """The model above and chip_smoke.py's ptxas labels read B2's last-pass
+    constants from ops/cuda_ntt.py; they are csrc/ntt.cu's."""
+    src = (cuda_build.CSRC / "ntt.cu").read_text()
+    for name, value in (("kLevelOa", cuda_ntt.LEVEL_OA),
+                        ("kLevelChainLog", cuda_ntt.LEVEL_CHAIN_LOG)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", src) == [str(value)]
+
+
 def test_radix_split():
     """One pass up to 2^6 points; above, NA = 2^(bits − bits/2) and NB =
     2^(bits/2), each at most 64 (csrc/ntt.cu split_a / split_b)."""
@@ -242,18 +251,19 @@ def test_radix_split():
 
 @pytest.mark.parametrize("bits", [7, 13, 14])
 def test_planar_ntt_shares_its_scratch_array(bits, monkeypatch):
-    """planar_ntt hands B2's scratch array to B3 and lets B3 write over
-    B2's output; the plain versions ignore both, and the result equals
-    the host transform."""
+    """planar_ntt lets B3 write over B2's output (each wrapper allocates
+    its own scratch array, so three C·N arrays are live at most); the
+    result equals the host transform."""
     seen = []
     level, grid = cuda_ntt.level_planar, cuda_ntt.base_grid
 
     def spy_level(*args, **kw):
-        seen.append(("level", kw))
-        return level(*args, **kw)
+        y = level(*args, **kw)
+        seen.append(("level", kw, y))
+        return y
 
     def spy_grid(*args, **kw):
-        seen.append(("grid", kw))
+        seen.append(("grid", kw, args[0]))
         return grid(*args, **kw)
 
     monkeypatch.setattr(cuda_ntt, "level_planar", spy_level)
@@ -263,34 +273,32 @@ def test_planar_ntt_shares_its_scratch_array(bits, monkeypatch):
     want = ntt.ntt_host_u64(torch_gl.to_u64(x).T.copy(), bits).T
     np.testing.assert_array_equal(torch_gl.to_u64(got), want)
     if bits <= ntt.BASE_BITS:
-        assert [k for k, _ in seen] == ["grid"] and seen[0][1] == {}
+        assert [k for k, _, _ in seen] == ["grid"] and seen[0][1] == {}
     else:
-        (_, kw_level), (_, kw_grid) = seen
-        assert kw_grid["scratch"] is kw_level["scratch"]
-        assert kw_grid["out"] is not None
+        (_, kw_level, y), (_, kw_grid, y_in) = seen
+        assert kw_level == {} and y_in is y and kw_grid == {"out": y}
+        assert got.data_ptr() == y.data_ptr()
 
 
 def test_wrappers_refuse_bad_buffers():
-    """A pass must not write over what it reads: the scratch array is
-    neither an input nor the output and holds as many words as the input
-    (any shape); B3's out may be y only when two passes run.  Checked
-    before the device dispatch, so on the CPU too."""
-    x = _input((2, 1 << 13), 5)
-    lt = ntt.level_twiddles(13, 1, False, "cpu")
-    for bad in (x, torch.empty(2, 1 << 12, dtype=torch.int64)):
-        with pytest.raises(ValueError):
-            cuda_ntt.level_planar(x, 1, 1 << 12, 2, lt, False, scratch=bad)
+    """B3's out is a contiguous int64 array of y's shape and may be y only
+    when two passes run (its first pass has read y by the time the second
+    writes).  Checked before the device dispatch, so on the CPU too, where
+    the result goes into out as on the card."""
     y = _input((2 << 12, 2), 6)
-    s = torch.empty(2, 1 << 13, dtype=torch.int64)
-    with pytest.raises(ValueError):
-        cuda_ntt.base_grid(y, 12, 2, False, scratch=y)
-    with pytest.raises(ValueError):
-        cuda_ntt.base_grid(y, 12, 2, False, scratch=s, out=s)
+    for bad in (torch.empty(2, 1 << 13, dtype=torch.int64),
+                torch.empty((2 << 12, 2), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            cuda_ntt.base_grid(y, 12, 2, False, out=bad)
     small = _input((3 << 5, 4), 7)
     with pytest.raises(ValueError):
         cuda_ntt.base_grid(small, 5, 3, False, out=small)
-    got = cuda_ntt.base_grid(y.clone(), 12, 2, False, scratch=s, out=y)
-    assert torch.equal(got, cuda_ntt.base_grid_plain(y, 12, 2, False))
+    want = cuda_ntt.base_grid_plain(y, 12, 2, False)
+    out = torch.empty_like(y)
+    assert cuda_ntt.base_grid(y, 12, 2, False, out=out) is out
+    assert torch.equal(out, want)
+    assert cuda_ntt.base_grid(y, 12, 2, False, out=y) is y
+    assert torch.equal(y, want)
 
 
 LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
