@@ -33,8 +33,16 @@ Phases, each printing one JSON line:
                    equal to B4 at the prove's leaf batches of 2^22 and
                    2^25 states and timed beside it; then the two tools'
                    entry points on the card, with X1/X2 launches counted;
-  4. small       — prove the all-gadgets machine at 2^8 on the card and on
-                   the CPU, and require the two proofs to be identical;
+  4. small       — prove on the card and on the CPU, and require the two
+                   proofs to be identical: the all-gadgets machine at 2^8,
+                   the boundary machine (everyFrame, firstRow, lastRow),
+                   fibonacci with hashCommits, the Poseidon VM at 2^6 and
+                   both fibv airs under one set of external challenges;
+                   verify_global_constraints must accept the fibv proofs'
+                   subproof values and reject a changed one, and
+                   prove(debug=True) on the card must find no error in the
+                   VM's witness and the CPU's errors in one with a flipped
+                   state element;
   5. large_ntt   — a 2^25-point transform of 3 columns (the row route on
                    B1): intt(ntt(x)) == x, ntt equal to the same route with
                    the plain B1, and 4 outputs equal to a host evaluation of
@@ -44,11 +52,20 @@ Phases, each printing one JSON line:
                    report cold and warm wall time, the phase breakdown and
                    peak memory;
   7. prove_large — the same for fibonacci at 2^22 rows, nBitsExt 25 (the
-                   row route, setups/fibonacci_22.json).
+                   row route, setups/fibonacci_22.json);
+  8. prove_vm    — the same for the Poseidon VM at 2^20 rows (2^15
+                   permutations of random states, nBitsExt 23, 32
+                   queries, setups/poseidon_vm_20.json), the widest machine:
+                   39 fixed, 12 witness and 21 Q columns; the trace's last
+                   states must equal the host permutation;
+  9. profile     — one warm prove each of the VM and fibonacci 2^22 under
+                   prove(profile_dir=): the card's idle share over the prove
+                   (utils/timing.py::idle_share) and the device's top
+                   operations by time.
 In each prove phase the kernels' launch counters are zeroed just before the
-cold prove and read just after it, and every kernel must have launched (T1
-three times, once per program, and T2 once); B1's kernel launches are also
-reported by shape (two per base of more than 64 rows).  B2 and B3 count
+cold prove and read just after it, and every kernel must have launched (B1,
+B2, B3, B4; T1 three times, once per program, and T2 once); B1's kernel
+launches are also reported by shape (two per base of more than 64 rows).  B2 and B3 count
 two launches per call above 2^6 points (their two passes).
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
@@ -70,6 +87,16 @@ LARGE_SETUP = "fibonacci_22"  # fibonacci at 2^22 rows, blowup 8
 LARGE_N_BITS = 22
 LARGE_BITS = 25  # its extended domain: past the planar ceiling, the row route
 LARGE_COLS = 3  # the widest transform of that prove (Q, and the evals' iNTT)
+VM_SETUP = "poseidon_vm_20"  # the Poseidon VM at 2^20 rows, blowup 8
+VM_N_BITS = 20
+VM_BITS = 23  # its extended domain: the planar route (B2/B3)
+VM_SEED = 3  # its input states, as tests/test_poseidon_vm.py makes them
+# (bits, columns, inverse) of its widest planar transforms in a prove: the
+# Q split's 21-column NTT and the stage-1 12-column iNTT
+VM_PLANAR = ((VM_BITS, 21, False), (VM_N_BITS, 12, True))
+SMALL_SETUPS = ("all_8", "boundaries_6", "fibonacci_6_hash", "poseidon_vm_6")
+FIBV_AIRS = ("fibv_module", "fibv_fibonacci")
+PROFILE_DIR = "pil2_stark_tpu_torch/_build/profile"  # under the checkout, gitignored
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
 # integer multiply-add rate is half the FP32 FMA rate (67e12 FLOP/s / 2
@@ -104,9 +131,10 @@ TOOL_BLOCKS = (512, 2048)  # run_variant's and run_sustained's block
 X1_BITS = (14, 20)  # exp_stream.main's check size and its largest timed size
 X2_SRC = "pil2_stark_tpu_torch/csrc/poseidon_variants.cu"
 X1_SRC = "pil2_stark_tpu_torch/csrc/poseidon_stream.cu"
-# (bits, inverse) of the planar transforms timed in the kernels phase: the
-# all-gadgets 2^22 LDE and 2^20 iNTT, fibonacci's 2^22 iNTT
-PLANAR_SHAPES = ((N_BITS + 2, False), (N_BITS, True), (LARGE_N_BITS, True))
+# (bits, inverse) of the planar transforms whose passes the build line
+# reports: the all-gadgets 2^22 LDE and 2^20 iNTT, fibonacci's 2^22 iNTT,
+# the VM's 2^23 LDE
+PLANAR_SHAPES = ((N_BITS + 2, False), (N_BITS, True), (LARGE_N_BITS, True), (VM_BITS, False))
 CORNERS = [0, 1, 2, P - 1, P - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
            (1 << 63) - 1, 1 << 63, P - (1 << 32), P - (1 << 32) - 1]
 
@@ -310,7 +338,7 @@ def tac_programs():
     from pil2_stark_tpu_torch.utils import cuda_build
 
     out = {}
-    for name in (f"all_{N_BITS}", LARGE_SETUP):
+    for name in (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP, "boundaries_6") + FIBV_AIRS:
         data = stark_setup.read_setup(name)
         for which, prog in torch_tac.setup_programs(data["starkInfo"],
                                                     data["expressionsInfo"]).items():
@@ -369,6 +397,14 @@ def phase_kernels(device):
     rows += _tac_rows(device, LARGE_SETUP, ("imPols", "q", "fri"))
     rows.append(_xdiv_row(device, N_BITS + 2, all_path))
     rows.append(_xdiv_row(device, LARGE_BITS, LARGE_SETUP))
+    # the Poseidon VM at 2^20 / ext 2^23: B2/B3 at its widest transforms,
+    # B4 at its trees' leaf batch, T1 on its three programs (the Q program
+    # of 870 instructions), T2 at 2^23
+    for bits, cols, inverse in VM_PLANAR:
+        rows += _ntt_rows(device, bits, cols, inverse, VM_SETUP)
+    rows.append(_poseidon_row(device, 1 << VM_BITS, VM_SETUP))
+    rows += _tac_rows(device, VM_SETUP, ("imPols", "q", "fri"))
+    rows.append(_xdiv_row(device, VM_BITS, VM_SETUP))
     for r in rows:
         emit({"phase": "kernels", **r})
     bad = [(r["name"], r["path"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
@@ -565,7 +601,12 @@ def _tac_rows(device, setup_name, programs):
              "columns": gen.n_cols, "scalars": gen.n_scalars, **cost},
             setup_name, reps=20 if n <= 1 << 22 else 5)
         sass = sass_counts(lib, "tac_seg0", [], outer=True)
+        byte_ms = (cost["read_words"] + cost["write_words"]) * n * 8 / HBM_BYTES_PER_S * 1e3
         row.update(note=XLA_FUSION, ratio=row["ms"] / row["bound_ms"], library=lib,
+                   byte_bound_ms=byte_ms, ratio_to_byte_bound=row["ms"] / byte_ms,
+                   # Params: n, the row shifts and one address per column
+                   # (tac_codegen.generate refuses above MAX_PARAM_BYTES, 4 KiB)
+                   param_bytes=8 * (1 + max(len(gen.shifts), 1) + gen.n_cols),
                    ptxas={f"tac_seg{s}": _ptxas(f"tac_seg{s}", lib)
                           for s in range(len(prog.segments))},
                    nvcc_s=cuda_build.build_seconds.get(lib),
@@ -725,34 +766,147 @@ def phase_tools(device, kernel_rows):
     return rows, launches
 
 
-def _prove_all(n_bits, device, setup=None):
-    from pil2_stark_tpu_torch.models import gadgets
+def vm_inputs(n, seed=VM_SEED):
+    """The VM's (n // 32, 12) input states from a seed."""
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, P, size=(n // 32, 12), dtype=np.uint64)
+
+
+def machine_columns(data):
+    """(fixed columns, witness columns, publics) of a committed setup's
+    machine, built by the port's witness generators."""
+    from pil2_stark_tpu_torch.models import fibonacci, gadgets, poseidon_vm
+
+    n = 1 << data["nBits"]
+    if data["machine"] == "all":
+        return gadgets.build_all(data["references"], n)
+    if data["machine"] == "poseidon_vm":
+        return poseidon_vm.build(data["references"], n, vm_inputs(n))
+    return fibonacci.build(data["references"], n)  # fibonacci and boundaries
+
+
+def _prove_case(name, device):
+    """(result, setup) of one committed setup proved on `device`."""
     from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
 
-    data = stark_setup.read_setup(f"all_{n_bits}")
-    const_cols, cm_cols, publics = gadgets.build_all(data["references"], 1 << n_bits)
-    if setup is None:
-        setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
-                                       data["verifierInfo"], const_cols.buffer, device=device)
+    data = stark_setup.read_setup(name)
+    const_cols, cm_cols, publics = machine_columns(data)
+    setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
+                                   data["verifierInfo"], const_cols.buffer, device=device)
     res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
                        setup["constTree"], (cm_cols.buffer, publics), device=device)
     return res, setup
 
 
-def phase_small(device):
-    from pil2_stark_tpu_torch.stark import verifier
+def fibv_challenges(seed=7):
+    """One set of external challenges for both fibv airs
+    (tests/test_vadcop.py::_ext_challenges, from a seed)."""
+    import numpy as np
 
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
+
+    info = stark_setup.read_setup("fibv_fibonacci")["starkInfo"]
+    rng = np.random.default_rng(seed)
+
+    def draw():
+        return tuple(int(rng.integers(0, 1 << 63)) % P for _ in range(3))
+
+    stages = [[draw() for c in info["challengesMap"] if c["stage"] == stage]
+              for stage in range(1, info["nStages"] + 4)]
+    fri = [draw() for _ in range(len(info["starkStruct"]["steps"]) + 1)]
+    return {"stages": stages, "friSteps": fri}
+
+
+def _prove_fibv(name, device, ext):
+    import numpy as np
+
+    from pil2_stark_tpu_torch.models import fibv
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
+
+    data = stark_setup.read_setup(name)
+    fixed = np.asarray(data["fixedPols"], dtype=np.uint64)
+    cm_mod, cm_fib, publics = fibv.execute(101, 1, 2)
+    setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
+                                   data["verifierInfo"], fixed, device=device)
+    res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], fixed, setup["constTree"],
+                       (cm_mod if name == "fibv_module" else cm_fib, publics), device=device,
+                       external_challenges=ext)
+    return res, setup
+
+
+def phase_small(device):
+    """Each small case proved on the card and on the CPU: identical proofs
+    that verify; the fibv global constraint; debug mode on the card."""
+    import numpy as np
+
+    from pil2_stark_tpu_torch.models import poseidon_vm
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup, verifier
+
+    failed = []
+    for name in SMALL_SETUPS:
+        t0 = time.perf_counter()
+        res_gpu, s_gpu = _prove_case(name, device)
+        res_cpu, _ = _prove_case(name, "cpu")
+        same = (canon(res_gpu["proof"]) == canon(res_cpu["proof"])
+                and res_gpu["challenges"] == res_cpu["challenges"])
+        ok = verifier.verify(res_gpu["proof"], res_gpu["publics"], s_gpu["constRoot"],
+                             s_gpu["starkInfo"], s_gpu["verifierInfo"])
+        emit({"phase": "small", "setup": name, "n_bits": s_gpu["starkInfo"]["starkStruct"]["nBits"],
+              "identical": same, "verified": ok, "seconds": time.perf_counter() - t0})
+        if not (same and ok):
+            failed.append(name)
+
+    # vadcop: both fibv airs under one set of external challenges
     t0 = time.perf_counter()
-    res_gpu, s_gpu = _prove_all(8, device)
-    res_cpu, _ = _prove_all(8, "cpu")
-    same = (canon(res_gpu["proof"]) == canon(res_cpu["proof"])
-            and res_gpu["challenges"] == res_cpu["challenges"])
-    ok = verifier.verify(res_gpu["proof"], res_gpu["publics"], s_gpu["constRoot"],
-                         s_gpu["starkInfo"], s_gpu["verifierInfo"])
-    emit({"phase": "small", "machine": "all", "n_bits": 8, "identical": same,
-          "verified": ok, "seconds": time.perf_counter() - t0})
-    if not (same and ok):
-        raise AssertionError("all 2^8: card and CPU proofs differ or do not verify")
+    ext = fibv_challenges()
+    sv = []
+    for name in FIBV_AIRS:
+        res_gpu, s_gpu = _prove_fibv(name, device, ext)
+        res_cpu, _ = _prove_fibv(name, "cpu", ext)
+        same = (canon(res_gpu["proof"]) == canon(res_cpu["proof"])
+                and res_gpu["challenges"] == res_cpu["challenges"])
+        ok = verifier.verify(res_gpu["proof"], res_gpu["publics"], s_gpu["constRoot"],
+                             s_gpu["starkInfo"], s_gpu["verifierInfo"],
+                             challenges=(res_gpu["challenges"], res_gpu["challengesFRISteps"]))
+        emit({"phase": "small", "setup": name, "external_challenges": True,
+              "identical": same, "verified": ok,
+              "subproof_values": canon(res_gpu["proof"]["subproofValues"])})
+        if not (same and ok):
+            failed.append(name)
+        sv.append(res_gpu["proof"]["subproofValues"])
+    codes = stark_setup.read_setup("fibv_global")["constraints"]
+    accepted = verifier.verify_global_constraints(codes, sv)
+    changed = [[tuple((int(x) + 1) % P for x in sv[0][0])], sv[1]]
+    rejected = verifier.verify_global_constraints(codes, changed)
+    emit({"phase": "small", "check": "verify_global_constraints", "accepted": accepted,
+          "changed_value_failures": rejected, "seconds": time.perf_counter() - t0})
+    if accepted or not rejected:
+        failed.append("fibv_global")
+
+    # debug mode on the card: the VM's witness, then one flipped element
+    t0 = time.perf_counter()
+    debug = stark_setup.read_setup("poseidon_vm_6_debug")
+    const_cols, cm_cols, _ = machine_columns(stark_setup.read_setup("poseidon_vm_6"))
+    bad = cm_cols.buffer.copy()
+    bad[7, 0] ^= np.uint64(1)
+    errors = {}
+    for label, cm in (("valid", cm_cols.buffer), ("flipped", bad)):
+        errors[label] = [prover.prove(debug["starkInfo"], debug["expressionsInfo"],
+                                      const_cols.buffer, None, (cm, []), debug=True, device=dev)
+                         for dev in (device, "cpu")]
+    final = poseidon_vm.final_states(cm_cols.buffer)
+    emit({"phase": "small", "check": "debug", "setup": "poseidon_vm_6_debug",
+          "card_errors_valid": errors["valid"][0], "card_errors_flipped": len(errors["flipped"][0]),
+          "first_error_flipped": errors["flipped"][0][:1],
+          "card_equals_cpu": errors["valid"][0] == errors["valid"][1]
+          and errors["flipped"][0] == errors["flipped"][1],
+          "seconds": time.perf_counter() - t0})
+    if (errors["valid"][0] or not errors["flipped"][0] or errors["valid"] != [[], []]
+            or errors["flipped"][0] != errors["flipped"][1] or final.shape != (2, 12)):
+        failed.append("debug")
+    if failed:
+        raise AssertionError(f"small: card and CPU proofs differ or a check failed: {failed}")
 
 
 @contextlib.contextmanager
@@ -826,15 +980,20 @@ def phase_prove(device, setup_name, counters):
     """Prove one committed setup on the card, cold then warm; verify."""
     import torch
 
-    from pil2_stark_tpu_torch.models import fibonacci, gadgets
+    from pil2_stark_tpu_torch.hash import poseidon_gl
+    from pil2_stark_tpu_torch.models import poseidon_vm
     from pil2_stark_tpu_torch.ops import cuda_ntt
     from pil2_stark_tpu_torch.stark import prover, setup as stark_setup, verifier
 
     data = stark_setup.read_setup(setup_name)
-    build = {"all": gadgets.build_all, "fibonacci": fibonacci.build}[data["machine"]]
     t0 = time.perf_counter()
-    const_cols, cm_cols, publics = build(data["references"], 1 << data["nBits"])
+    const_cols, cm_cols, publics = machine_columns(data)
     t_build = time.perf_counter() - t0
+    states_ok = None
+    if data["machine"] == "poseidon_vm":  # the trace's last states: the permutation
+        n = 1 << data["nBits"]
+        states_ok = bool((poseidon_vm.final_states(cm_cols.buffer)
+                          == poseidon_gl.permute(vm_inputs(n))).all())
     t0 = time.perf_counter()
     setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
                                    data["verifierInfo"], const_cols.buffer, device=device)
@@ -864,18 +1023,22 @@ def phase_prove(device, setup_name, counters):
                          setup["starkInfo"], setup["verifierInfo"])
     t_verify = time.perf_counter() - t0
     ss = data["starkInfo"]["starkStruct"]
-    emit({"phase": "prove" if data["machine"] == "all" else "prove_large",
+    phase = {"all": "prove", "fibonacci": "prove_large", "poseidon_vm": "prove_vm"}
+    emit({"phase": phase[data["machine"]],
           "setup": setup_name, "machine": data["machine"], "n_bits": ss["nBits"],
           "n_bits_ext": ss["nBitsExt"], "n_queries": ss["nQueries"],
           "verified": ok, "repeatable": same, "cold_s": cold, "warm_s": warm,
           "witness_build_s": t_build, "load_setup_s": t_setup, "verify_s": t_verify,
           "peak_device_bytes": peak, "phases_warm_s": res_warm["timings"],
           "phases_cold_s": res["timings"], "phases_peak_bytes": res_warm["peakBytes"],
-          "launches": launches, "b1_launches_by_shape": b1})
+          "launches": launches, "b1_launches_by_shape": b1,
+          "n_columns": {k: v for k, v in data["starkInfo"]["mapSectionsN"].items() if v},
+          **({"final_states_equal_permute": states_ok} if states_ok is not None else {})})
     del setup, res, res_warm
     torch.cuda.empty_cache()
-    if not (ok and same):
-        raise AssertionError(f"the {setup_name} proof does not verify or is not repeatable")
+    if not (ok and same) or states_ok is False:
+        raise AssertionError(f"the {setup_name} proof does not verify or is not repeatable, "
+                             f"or its trace is not the permutation")
     zero = [k for k, v in launches.items() if v == 0]
     if zero:
         raise AssertionError(f"kernels never launched on the {setup_name} prove: {zero}")
@@ -883,6 +1046,79 @@ def phase_prove(device, setup_name, counters):
         raise AssertionError(f"launches (counted, expected) on the {setup_name} prove: "
                              f"{miscounted}")
     return launches
+
+
+def device_ops(trace, top=12) -> dict:
+    """Device time by operation in a torch.profiler Chrome trace: the
+    `top` kernels by total time, and the memcpy/memset totals (us)."""
+    from pil2_stark_tpu_torch.utils import timing
+
+    by_name, other = {}, {}
+    for e in trace["traceEvents"]:
+        cat = e.get("cat")
+        if e.get("ph") != "X" or cat not in timing.DEVICE_CATEGORIES:
+            continue
+        if cat == "kernel":
+            t = by_name.setdefault(e["name"][:120], [0.0, 0])
+            t[0] += float(e["dur"])
+            t[1] += 1
+        else:
+            other[cat] = other.get(cat, 0.0) + float(e["dur"])
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"kernels_us": [[name, us, count] for name, (us, count) in ranked[:top]],
+            "kernel_total_us": sum(v[0] for v in by_name.values()),
+            "kernel_launches": sum(v[1] for v in by_name.values()), "other_us": other}
+
+
+def phase_profile(device, names):
+    """One warm prove of each setup under prove(profile_dir=): the card's
+    idle share over the prove and over its phases, and the device's top
+    operations by time."""
+    import os
+
+    import torch
+
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
+    from pil2_stark_tpu_torch.utils import timing
+
+    for name in names:
+        data = stark_setup.read_setup(name)
+        const_cols, cm_cols, publics = machine_columns(data)
+        setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
+                                       data["verifierInfo"], const_cols.buffer, device=device)
+        args = (setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
+                setup["constTree"], (cm_cols.buffer, publics))
+        t0 = time.perf_counter()
+        prover.prove(*args, device=device)  # warm, and its time without the profiler
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PROFILE_DIR, name)
+        res = prover.prove(*args, device=device, profile_dir=out_dir)
+        t_prove = time.perf_counter() - t0
+        with open(res["trace"]) as f:
+            trace = json.load(f)
+        idle = timing.idle_share(trace)
+        # the profiler slows the host, not the card: the device's busy time
+        # over the same prove without the profiler bounds its idle share below
+        span = next(e for e in trace["traceEvents"] if e.get("name") == "prove"
+                    and e.get("cat") in ("user_annotation", "cpu_op"))
+        busy_s = (1.0 - idle) * float(span["dur"]) * 1e-6
+        by_phase = {}
+        for phase_name, secs in res["timings"].items():
+            if secs > 0.02 and not phase_name.endswith(".upload"):
+                by_phase[phase_name] = {"s": secs, "idle_share": timing.idle_share(
+                    trace, window=phase_name)}
+        emit({"phase": "profile", "setup": name, "idle_share": idle,
+              "device_busy_s": busy_s, "prove_window_s": float(span["dur"]) * 1e-6,
+              "warm_prove_s": t_plain, "idle_share_unprofiled": 1.0 - busy_s / t_plain,
+              "profiled_prove_s": t_prove, "phases_s": res["timings"],
+              "idle_share_by_phase": by_phase, "device": device_ops(trace),
+              "trace_bytes": os.path.getsize(res["trace"])})
+        del setup, res, trace
+        torch.cuda.empty_cache()
+        if not 0.0 <= idle < 1.0:
+            raise AssertionError(f"{name}: no device activity in the profiled prove")
 
 
 def prove_counters():
@@ -921,7 +1157,8 @@ def main():
     phase_small(device)
     phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
     launches.update({name: phase_prove(device, name, counters)
-                     for name in (f"all_{N_BITS}", LARGE_SETUP)})
+                     for name in (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP)})
+    phase_profile(device, (VM_SETUP, LARGE_SETUP))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     names = {"base_rows": "base_rows", "level_planar": "level_planar",

@@ -1,9 +1,10 @@
 """Fibonacci state machine — the reference's minimal E2E fixture.
 
 Witness generators mirror pil2-stark-js test/state_machines/sm_fibonacci/
-sm_fibonacci.js (buildConstants :1-12, execute :15-27).  The PIL source and
-its compiled setup live with the JAX package (models/fibonacci.py) and in
-setups/fibonacci_6*.json.
+sm_fibonacci.js (buildConstants :1-12, execute :15-27).  The PIL sources
+and their compiled setups live with the JAX package (models/fibonacci.py)
+and in setups/fibonacci_*.json and setups/boundaries_6.json (the boundary
+variant: everyFrame, firstRow and lastRow constraints, no L1/LLAST).
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ def build(references: dict, n: int, inputs=(1, 2)):
 
     const_cols = witness.generate_fixed_cols(references, n)
     cm_cols = witness.generate_wtns_cols(references, n)
-    build_constants(n, const_cols.Fibonacci)
+    if "Fibonacci.L1" in references:  # the boundary variant has no fixed columns
+        build_constants(n, const_cols.Fibonacci)
     out = execute(n, cm_cols.Fibonacci, list(inputs))
     return const_cols, cm_cols, [inputs[0], inputs[1], out]

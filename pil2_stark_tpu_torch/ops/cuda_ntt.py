@@ -139,7 +139,9 @@ def level_planar_plain(x, bits1: int, n2: int, n_cols: int, level_tw,
     rev = torch.as_tensor(bit_reverse_indices(bits1), device=x.device)
     xr = gl.canon(x.reshape(n_cols, n1, n2)[:, rev, :])
     y = gl.mul(dit_brev(xr, bits1, inverse), level_tw[None])
-    return y.permute(0, 2, 1).reshape(n_cols * n2, n1)
+    # contiguous like the kernel's output (with one column the reshape
+    # would be a transposed view, which base_grid(out=) refuses)
+    return y.permute(0, 2, 1).contiguous().reshape(n_cols * n2, n1)
 
 
 def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw, inverse: bool) -> torch.Tensor:

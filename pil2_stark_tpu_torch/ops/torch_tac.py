@@ -15,7 +15,7 @@ computation, which frees dead values and fuses the chain; here
   * every operand resolves to a descriptor: a slot, a column (a section
     column, x, a Zi row, an xDivXSubXi opening, or a buffer the program
     writes) with its row shift, or an entry of the scalar table (numbers,
-    publics, challenges, evals);
+    publics, challenges, evals, subproof values);
   * each write of a ``tmp`` is a value that takes the lowest free slot; a
     slot is freed after the last read of its value, so the slot count is
     the peak of live values;
@@ -35,7 +35,7 @@ import heapq
 import numpy as np
 import torch
 
-from ..field import gl64
+from ..field import f3, gl64
 from ..field import torch_gl as gl
 from ..field import torch_f3 as f3g
 from ..utils import cuda_build
@@ -129,7 +129,8 @@ def make_executor(code_obj, dom: str, pil_info: dict, n_bits: int, ext_bits: int
 
     inputs: {"sections": {"const"|"cm1"|…: (cols, rows) tensor},
              "x": (N,), "Zi": (nBoundaries, extN), "xDivXSubXi": (nOpenings, 3, extN),
-             "publics": (nPublics,), "challenges": (nChallenges, 3), "evals": (nEvals, 3)}
+             "publics": (nPublics,), "challenges": (nChallenges, 3), "evals": (nEvals, 3),
+             "subproofValues": (nSubproofValues, 3), needed only by a program that reads them}
     Output: {"q": (d, N), "f": (3, N), "cm": {(section, offset, dim): (d, N)}}
     for whatever the program writes.  CUDA inputs run kernel T1 (its build
     at first use, unless build_programs made it), CPU inputs its plain
@@ -202,7 +203,7 @@ def _compile(code, dom, pil_info, n_bits, ext_bits) -> Program:
         t = r["type"]
         if t == "cm":
             return cm_map[r["id"]]["dim"]
-        if t in ("challenge", "eval", "xDivXSubXi"):
+        if t in ("challenge", "eval", "xDivXSubXi", "subproofValue"):
             return 3
         if t in ("const", "number", "public", "x", "Zi"):
             return 1
@@ -212,7 +213,7 @@ def _compile(code, dom, pil_info, n_bits, ext_bits) -> Program:
     columns, col_index = [], {}
     buffers, buf_segment, buf_shift, current_buf = [], [], [], {}
     numbers, number_index = [], {}
-    used = {"public": 0, "challenge": 0, "eval": 0}
+    used = {"public": 0, "challenge": 0, "eval": 0, "subproofValue": 0}
     slot_of, free, n_slots = {}, [], 0
     ins, segments, seg_start = [], [], 0
 
@@ -319,7 +320,8 @@ def _compile(code, dom, pil_info, n_bits, ext_bits) -> Program:
     groups, off = {}, 0
     for group, count, width in (("number", len(numbers), 1), ("public", used["public"], 1),
                                 ("challenge", used["challenge"], 3),
-                                ("eval", used["eval"], 3)):
+                                ("eval", used["eval"], 3),
+                                ("subproofValue", used["subproofValue"], 3)):
         groups[group] = (off, count, width)
         off += count * width
     ins = [(op, rd, dest, [_place_scalar(s, groups) for s in srcs])
@@ -348,7 +350,8 @@ def _place_scalar(s, groups):
 
 def _scalar_table(prog: Program, inputs, numbers: torch.Tensor) -> torch.Tensor:
     parts = [numbers]
-    for group, key in (("public", "publics"), ("challenge", "challenges"), ("eval", "evals")):
+    for group, key in (("public", "publics"), ("challenge", "challenges"), ("eval", "evals"),
+                       ("subproofValue", "subproofValues")):
         _, count, width = prog.scalar_groups[group]
         if count == 0:
             continue
@@ -545,12 +548,14 @@ def pack_inputs(ctx, dom: str):
     publics = [int(p or 0) % gl64.P_INT for p in ctx.publics]
     challenges = [list(c) for stage in ctx.challenges for c in stage] or [[0, 0, 0]]
     evals = [list(e) for e in ctx.evals] or [[0, 0, 0]]
+    subproof_values = [list(f3.as3(v)) for v in ctx.subproof_values] or [[0, 0, 0]]
     inputs = {
         "sections": sections,
         "x": ctx.dx[dom],
         "publics": _small(publics or [0], (-1,), device),
         "challenges": _small(challenges, (-1, 3), device),
         "evals": _small(evals, (-1, 3), device),
+        "subproofValues": _small(subproof_values, (-1, 3), device),
     }
     if dom == "ext":
         inputs["Zi"] = ctx.dZi

@@ -16,16 +16,21 @@ import torch
 
 from ..field import gl64
 from ..field import torch_gl as gl
-from ..hash.mh import build_mh
+from ..hash.mh import MerkleHashGL, build_mh
 from . import device as dev
 
 
 class ProverCtx:
-    def __init__(self, pil_info, expressions_info, const_pols, const_tree, device):
+    """debug=True (pil2_stark_tpu/stark/context.py:18-63, :200): the base
+    domain only, for the constraint check of a debug setup: no extended
+    domain, no const tree, and the default GL transcript."""
+
+    def __init__(self, pil_info, expressions_info, const_pols, const_tree, device, debug=False):
         self.pil_info = pil_info
         self.expressions_info = expressions_info
         self.const_tree = const_tree
         self.device = device
+        self.debug = debug
         self.trees = {}
 
         ss = pil_info["starkStruct"]
@@ -33,9 +38,14 @@ class ProverCtx:
             raise NotImplementedError("the port proves with GL hash trees only")
         self.n_bits = ss["nBits"]
         self.N = 1 << self.n_bits
-        self.n_bits_ext = ss["nBitsExt"]
-        self.ext_N = 1 << self.n_bits_ext
-        self.extend_bits = self.n_bits_ext - self.n_bits
+        if not debug:
+            self.n_bits_ext = ss["nBitsExt"]
+            self.ext_N = 1 << self.n_bits_ext
+            self.extend_bits = self.n_bits_ext - self.n_bits
+        else:
+            self.n_bits_ext = self.ext_N = self.extend_bits = None
+        self.external_challenges = None
+        self.errors = []
         self.tmp = []
         self.challenges = []
         self.challenges_fri_steps = []
@@ -55,19 +65,21 @@ class ProverCtx:
             self.buffers[f"cm{i + 1}_n"] = np.zeros((self.N, w), dtype=np.uint64)
         self._x_n = None
 
-        dx_n, dx_ext, self.dZi = dev.domain_consts(
-            self.n_bits, self.n_bits_ext, pil_info["boundaries"], device)
-        self.dx = {"n": dx_n, "ext": dx_ext}
-        self.dsections = {
-            "n": {"const": gl.from_u64(np.ascontiguousarray(self.const_n.T), device)},
-            "ext": {"const": const_tree.elements},
-        }
+        const_n = gl.from_u64(np.ascontiguousarray(self.const_n.T), device)
+        if debug:
+            self.dx = {"n": gl.powers(gl64.w(self.n_bits), self.N, device)}
+            self.dsections = {"n": {"const": const_n}}
+        else:
+            dx_n, dx_ext, self.dZi = dev.domain_consts(
+                self.n_bits, self.n_bits_ext, pil_info["boundaries"], device)
+            self.dx = {"n": dx_n, "ext": dx_ext}
+            self.dsections = {"n": {"const": const_n}, "ext": {"const": const_tree.elements}}
         self.dpending = {}
         self.dxdiv = None
         self.dq = None
         self.df = None
 
-        self.mh = build_mh(ss)
+        self.mh = MerkleHashGL() if debug else build_mh(ss)
         self.transcript = self.mh.new_transcript()
 
     # -- host addressing (hints / expr_eval) ---------------------------------

@@ -3,7 +3,8 @@ base domain with numpy Goldilocks/extension ops, every instruction a
 whole-column vector op, rotations np.roll.
 
 Host copy of pil2_stark_tpu/stark/expr_eval.py, base domain only (the
-extended-domain programs run on the device, ops/torch_tac.py).  Operand
+extended-domain programs run on the device, ops/torch_tac.py), with the
+debug mode's constraint check (``check_constraint``).  Operand
 addressing mirrors pil2-stark-js src/prover/prover_helpers.js:31-107:
 section-major buffers with stagePos offsets, rotation (i + prime) mod N.
 """
@@ -126,3 +127,35 @@ def execute_code(ctx, code_obj, dom, ret=False):
             out = np.broadcast_to(out, (n,) + out.shape).copy()
         return out
     return None
+
+
+def check_constraint(ctx, code_obj):
+    """Debug-mode constraint check (pil2_stark_tpu/stark/expr_eval.py:159-188,
+    prover_helpers.js:46-70) on the base domain: evaluate the constraint
+    everywhere, then report the first 10 non-zero rows of its boundary
+    range."""
+    vals = execute_code(ctx, code_obj, "n", ret=True)
+    n = ctx.N
+    boundary = code_obj.get("boundary", "everyRow")
+    if boundary == "everyRow":
+        first, last = 0, n
+    elif boundary in ("firstRow", "finalProof"):
+        first, last = 0, 1
+    elif boundary == "lastRow":
+        first, last = n - 1, n
+    elif boundary == "everyFrame":
+        first, last = code_obj["offsetMin"], n - code_obj["offsetMax"]
+    else:
+        raise ValueError(f"Invalid boundary: {boundary}")
+    window = vals[first:last]
+    nonzero = (
+        np.nonzero(window)[0] if window.ndim == 1 else np.nonzero(window.any(axis=1))[0]
+    )
+    errors = []
+    for i in nonzero[:10]:
+        row = first + int(i)
+        errors.append(
+            f"{code_obj.get('line')}: identity does not match w={row} "
+            f"val={vals[row]}"
+        )
+    return errors

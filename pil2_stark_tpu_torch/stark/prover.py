@@ -25,27 +25,50 @@ from ..ops import ntt as ntt_ops
 from ..ops import torch_tac
 from ..utils.timing import PhaseTimer
 from . import device as dev
-from . import hints
+from . import expr_eval, hints
 from .context import ProverCtx, resolve_device
 from .fri import FRI
 
 
-def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=None, logger=None):
+def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=None,
+          logger=None, debug=False, profile_dir=None, external_challenges=None):
     """Returns {proof, publics, challenges, challengesFRISteps, timings,
     peakBytes}; peakBytes holds each phase's peak device memory on CUDA.
 
     inputs = (stage-1 witness columns as an (N, nCm1) u64 array, publics).
     const_tree is the DeviceTree from stark.setup.load_setup.  device=None
     means "cuda" and raises when CUDA is unavailable; tests pass "cpu".
+
+    debug=True (pil2_stark_tpu/stark/prover.py:101-130): with a debug setup
+    (pilinfo's {"debug": True}, whose expressionsInfo has "constraints"),
+    no commits and no Q stage; each stage's constraints are checked on the
+    base domain and the list of errors is returned.  const_tree may be None.
+    The first challenge of each stage after the first comes from
+    default_rng(0xC0FFEE), the others from a transcript that absorbed
+    nothing.
+
+    profile_dir: run under torch.profiler (CPU and, on a card, CUDA
+    activities) and write its Chrome trace to profile_dir/trace.json; the
+    prove is the span "prove" in it, each phase a span of its own.
+    utils/timing.py::idle_share reads the card's idle share from it.
+
+    external_challenges (vadcop, pil2_stark_tpu/stark/prover.py:79-86):
+    {"stages": [[3-tuple, ...] for stages 1..nStages+3], "friSteps": [one
+    per FRI step, then the query challenge]} replace the transcript's.
     """
     device = resolve_device(device)
-    if const_tree.elements.device != device:
+    if profile_dir is not None:
+        return _profiled(profile_dir, device, lambda: prove(
+            stark_info, expressions_info, const_pols, const_tree, inputs, device=device,
+            logger=logger, debug=debug, external_challenges=external_challenges))
+    if not debug and const_tree.elements.device != device:
         raise ValueError(
             f"the const tree lives on {const_tree.elements.device}, the prove on {device}")
     timer = PhaseTimer(logger, device)
     with timer.phase("init"):
-        ctx = ProverCtx(stark_info, expressions_info, const_pols, const_tree, device)
+        ctx = ProverCtx(stark_info, expressions_info, const_pols, const_tree, device, debug=debug)
     ctx.timer = timer
+    ctx.external_challenges = external_challenges
 
     cm1_values, publics_inputs = inputs
     n_cm1 = sum(1 for c in stark_info["cmPolsMap"] if c["stage"] == 1)
@@ -58,11 +81,15 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
 
     challenge = None
     q_stage = stark_info["nStages"] + 1
-    for stage in range(1, q_stage + 1):
+    rng = np.random.default_rng(0xC0FFEE) if debug else None
+    for stage in range(1, q_stage + (0 if debug else 1)):
         if _n_challenges(stark_info, stage) > 0:
             _set_challenges(stage, ctx, challenge)
         with timer.phase(f"stage{stage}.witness"):
             _compute_stage(stage, ctx)
+        if debug:
+            challenge = _random_challenge(rng)
+            continue
         if stage == 1:
             _add_publics_transcript(ctx)
         with timer.phase(f"stage{stage}.commit"):
@@ -71,6 +98,8 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
         if _n_challenges(stark_info, stage) > 0:
             challenge = ctx.transcript.get_field()
 
+    if debug:
+        return ctx.errors
     if ctx.dpending:
         raise RuntimeError(
             f"device TAC writes to section(s) {sorted(ctx.dpending)} "
@@ -93,6 +122,8 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
     n_steps = len(ss["steps"])
     for step in range(n_steps):
         challenge = ctx.transcript.get_field()
+        if external_challenges is not None:
+            challenge = tuple(int(x) for x in external_challenges["friSteps"][step])
         ctx.challenges_fri_steps.append(challenge)
         with timer.phase(f"friFold{step}"):
             fold = fri.fold(step, pol, challenge)
@@ -108,6 +139,8 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
         _add_transcript(ctx.transcript, commits)
 
     challenge_queries = ctx.transcript.get_field()
+    if external_challenges is not None:
+        challenge_queries = tuple(int(x) for x in external_challenges["friSteps"][n_steps])
     ctx.challenges_fri_steps.append(challenge_queries)
     fri_queries = _get_permutations(ctx, challenge_queries)
     with timer.phase("queries"):
@@ -138,29 +171,63 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
 # stages
 
 
+def _profiled(profile_dir, device, run):
+    """run() under torch.profiler, its Chrome trace written to
+    profile_dir/trace.json; the result gets the trace's path as "trace"."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        with record_function("prove"):
+            res = run()
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    if isinstance(res, dict):
+        res["trace"] = path
+    return res
+
+
 def _n_challenges(pil_info, stage):
     return sum(1 for c in pil_info["challengesMap"] if c["stage"] == stage)
 
 
 def _set_challenges(stage, ctx, challenge):
-    """setChallengesStark (stark_gen_helpers.js:414-439)."""
+    """setChallengesStark (stark_gen_helpers.js:414-439); the external
+    challenges of a vadcop prove take the transcript's place."""
     n = _n_challenges(ctx.pil_info, stage)
     while len(ctx.challenges) < stage:
         ctx.challenges.append([])
     ctx.challenges[stage - 1] = []
-    for i in range(n):
-        if i > 0 or not challenge:
-            ctx.challenges[stage - 1].append(ctx.transcript.get_field())
-        else:
-            ctx.challenges[stage - 1].append(challenge)
+    if ctx.external_challenges is not None:
+        given = [tuple(int(x) for x in c) for c in ctx.external_challenges["stages"][stage - 1]]
+        if len(given) != n:
+            raise ValueError(f"stage {stage} needs {n} external challenges, got {len(given)}")
+        ctx.challenges[stage - 1] = given
+    else:
+        for i in range(n):
+            if i > 0 or not challenge:
+                ctx.challenges[stage - 1].append(ctx.transcript.get_field())
+            else:
+                ctx.challenges[stage - 1].append(challenge)
     if stage < ctx.pil_info["nStages"] + 1:
         for i, c in enumerate(ctx.pil_info["challengesMap"]):
             if c["stage"] == stage:
                 ctx.set_symbol_calculated({"op": "challenge", "stage": stage, "id": i})
 
 
+def _random_challenge(rng):
+    """A debug prove's challenge (pil2_stark_tpu/stark/prover.py:257)."""
+    return tuple(int(rng.integers(0, 1 << 63)) % gl64.P_INT for _ in range(3))
+
+
 def _compute_stage(stage, ctx):
-    """computeStage (prover.js:192-231)."""
+    """computeStage (prover.js:192-231); in debug mode followed by the
+    check of the stage's constraints on the host."""
     q_stage = ctx.pil_info["nStages"] + 1
     if stage == q_stage:
         _run_code(ctx, *torch_tac.device_program(ctx.pil_info, ctx.expressions_info, "q"))
@@ -176,14 +243,24 @@ def _compute_stage(stage, ctx):
         code, dom = torch_tac.device_program(ctx.pil_info, ctx.expressions_info, "imPols")
         if code["code"]:
             _run_code(ctx, code, dom)
+    if ctx.debug:
+        for c in ctx.expressions_info["constraints"]:
+            if c["stage"] == stage:
+                ctx.errors.extend(expr_eval.check_constraint(ctx, c))
 
 
 def _run_code(ctx, code_obj, dom):
     """Run a TAC program on the device.  Base-domain outputs (the im-pols)
     stay on the device, staged for _extend_and_merkelize to splice into the
-    section; extended-domain programs leave Q or the FRI polynomial."""
+    section (in debug mode they go to the host buffers, which the
+    constraint check reads); extended-domain programs leave Q or the FRI
+    polynomial."""
     executor = torch_tac.make_executor(code_obj, dom, ctx.pil_info, ctx.n_bits, ctx.n_bits_ext)
     out = executor(torch_tac.pack_inputs(ctx, dom))
+    if ctx.debug:
+        for (section, offset, dim), val in out["cm"].items():
+            ctx.buffers[f"{section}_n"][:, offset:offset + dim] = gl.to_u64(val).T
+        return
     if dom == "ext":
         if "q" in out:
             ctx.dq = out["q"]

@@ -294,3 +294,26 @@ def _hash_list(values, mh):
         else:
             t.put(int(v))
     return t.get_state()
+
+
+def verify_global_constraints(constraints_code, subproof_values, publics=None, challenges=None):
+    """The vadcop cross-subproof constraints (boundary finalProof,
+    pil2_stark_tpu/stark/verifier.py:299-318) over the subproof values of
+    the component proofs: subproof_values holds one list of values per
+    subproof.  Returns the failures, [] when every constraint is zero."""
+    ctx = {
+        "global": True,
+        "subproofValues": [
+            [f3.as3(v) if not isinstance(v, tuple) else v for v in sub]
+            for sub in subproof_values
+        ],
+        "publics": publics or [],
+        "challenges": challenges or [],
+        "starkInfo": {"nStages": 0, "boundaries": []},
+    }
+    failures = []
+    for i, code in enumerate(constraints_code):
+        res = execute_code(ctx, code["code"])
+        if not f3.is_zero(res):
+            failures.append(f"{code.get('line')}: global constraint {i} != 0 ({res})")
+    return failures

@@ -3,10 +3,12 @@
 Counterpart of pil2_stark_tpu/utils/timing.py.  On a CUDA device a phase
 waits for the device at its end, so its time includes the device work it
 queued, and its peak device memory is recorded (``peaks``); each phase is
-also labelled in a torch.profiler trace (``record_function``)."""
+also labelled in a torch.profiler trace (``record_function``), from which
+``idle_share`` reads the card's idle share over the prove."""
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 
 import torch
@@ -72,3 +74,34 @@ def chain_ms(fn, x: torch.Tensor, k: int, reps: int) -> float:
             ms = (time.perf_counter() - t0) * 1e3 / k
         best = min(best, ms)
     return best
+
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def idle_share(trace, window: str = "prove") -> float:
+    """The card's idle share over a window of a torch.profiler Chrome trace
+    (a path or the loaded JSON): 1 − (union of the device's kernel, memcpy
+    and memset intervals inside the window) / the window.  The window is
+    the first CPU span named `window` (stark.prover.prove(profile_dir=)
+    records the prove as "prove")."""
+    if not isinstance(trace, dict):
+        with open(trace) as f:
+            trace = json.load(f)
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    span = next((e for e in events if e.get("name") == window
+                 and e.get("cat") in ("user_annotation", "cpu_op")), None)
+    if span is None:
+        raise ValueError(f"no span named {window!r} in the trace")
+    w0, w1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    if w1 <= w0:
+        raise ValueError(f"the span {window!r} is empty")
+    busy = sorted((max(w0, float(e["ts"])), min(w1, float(e["ts"]) + float(e["dur"])))
+                  for e in events if e.get("cat") in DEVICE_CATEGORIES)
+    covered, end = 0.0, w0
+    for a, b in busy:
+        a = max(a, end)
+        if b > a:
+            covered += b - a
+            end = b
+    return 1.0 - covered / (w1 - w0)

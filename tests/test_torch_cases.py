@@ -1,18 +1,23 @@
 """Shared cases of the PyTorch port's end-to-end tests: one case of
-tests/test_device_prover.py proved by the JAX package (backend="numpy") and
+tests/test_device_prover.py, tests/test_stark_boundaries.py or
+tests/test_poseidon_vm.py proved by the JAX package (backend="numpy") and
 by the port on the CPU, from the same committed setup and columns."""
 import copy
 import functools
 
-from pil2_stark_tpu.compiler import pil1_parser
 from pil2_stark_tpu.models import fibonacci as jfib, gadgets as jgad
-from pil2_stark_tpu.stark import prover as jprover, setup as jsetup, witness as jwitness
+from pil2_stark_tpu.stark import prover as jprover, setup as jsetup
 from pil2_stark_tpu_torch.stark import prover as tprover, setup as tsetup
+
+from test_torch_setups import BOUNDARY_STRUCT, jax_columns, machine_pil
 
 CASES = {
     "all_8": ("all", 8, jgad.stark_struct(8, 10, n_queries=8)),
     "fibonacci_6": ("fibonacci", 6, jfib.STARK_STRUCT),
     "fibonacci_6_split": ("fibonacci", 6, dict(copy.deepcopy(jfib.STARK_STRUCT), splitLinearHash=True)),
+    "fibonacci_6_hash": ("fibonacci", 6, dict(copy.deepcopy(jfib.STARK_STRUCT), hashCommits=True)),
+    "boundaries_6": ("boundaries", 6, BOUNDARY_STRUCT),
+    "poseidon_vm_6": ("poseidon_vm", 6, jgad.stark_struct(6, 9)),
 }
 
 
@@ -34,25 +39,8 @@ def canon(o):
 def case_inputs(name):
     """(pil, const columns, stage-1 columns, publics) of one case."""
     machine, n_bits, _ = CASES[name]
-    n = 1 << n_bits
-    if machine == "all":
-        pil = pil1_parser.compile_pil_source(jgad.all_source(n_bits))
-        pil["name"] = "all"
-    else:
-        pil = pil1_parser.compile_pil_source(jfib.pil_source(n_bits))
-        pil["name"] = "Fibonacci"
-    const_cols = jwitness.generate_fixed_cols(pil["references"], n)
-    cm_cols = jwitness.generate_wtns_cols(pil["references"], n)
-    if machine == "all":
-        jgad.build_global_constants(n, const_cols.Global)
-        jgad.build_plookup_constants(n, const_cols.Plookup)
-        jgad.execute_plookup(n, cm_cols.Plookup)
-        jgad.execute_permutation(n, cm_cols.Permutation)
-        jgad.build_connection_constants(n, const_cols.Connection)
-        jgad.execute_connection(n, cm_cols.Connection)
-    jfib.build_constants(n, const_cols.Fibonacci)
-    out = jfib.execute(n, cm_cols.Fibonacci, [1, 2])
-    return pil, const_cols, cm_cols, [1, 2, out]
+    pil = machine_pil(machine, n_bits)
+    return (pil,) + jax_columns(machine, pil, 1 << n_bits)
 
 
 def prove_port(name):

@@ -354,3 +354,77 @@ def _canon(o):
     if isinstance(o, (int, np.integer)):
         return int(o)
     return o
+
+
+def _vm_inputs(n, seed=3):
+    return np.random.default_rng(seed).integers(0, P, size=(n // 32, 12), dtype=np.uint64)
+
+
+def test_vm_proof_on_card_equals_cpu(card):
+    """The Poseidon VM at 2^10 rows (ext 2^13): its 870-instruction Q
+    program on T1 and every other kernel give the CPU's proof."""
+    from pil2_stark_tpu_torch.models import poseidon_vm
+    from pil2_stark_tpu_torch.stark import prover, setup, verifier
+
+    data = setup.read_setup("poseidon_vm_10")
+    const_cols, cm_cols, publics = poseidon_vm.build(data["references"], 1 << 10,
+                                                     _vm_inputs(1 << 10))
+    out = []
+    for dev in (card, torch.device("cpu")):
+        s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
+                             const_cols.buffer, device=dev)
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics), device=dev)
+        out.append((_canon(res["proof"]), res["challenges"]))
+    assert out[0] == out[1]
+    assert verifier.verify(res["proof"], res["publics"], s["constRoot"], s["starkInfo"],
+                           s["verifierInfo"])
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_debug_prove_on_card_equals_cpu(card, flip):
+    """prove(debug=True) on the card runs the im-pol program on T1 and
+    brings its columns to the host for the constraint check: the VM's
+    valid witness gives no error, a flipped state element the CPU's
+    errors."""
+    from pil2_stark_tpu_torch.models import poseidon_vm
+    from pil2_stark_tpu_torch.stark import prover, setup
+
+    n = 1 << 6
+    debug = setup.read_setup("poseidon_vm_6_debug")
+    const_cols, cm_cols, _ = poseidon_vm.build(setup.read_setup("poseidon_vm_6")["references"],
+                                               n, _vm_inputs(n))
+    cm = cm_cols.buffer.copy()
+    if flip:
+        cm[7, 0] ^= np.uint64(1)
+    before = cuda_tac.tac_program.launches
+    errors = [prover.prove(debug["starkInfo"], debug["expressionsInfo"], const_cols.buffer,
+                           None, (cm, []), debug=True, device=dev)
+              for dev in (card, torch.device("cpu"))]
+    assert cuda_tac.tac_program.launches == before + 1
+    assert errors[0] == errors[1]
+    assert bool(errors[0]) == flip
+
+
+def test_profiler_writes_a_trace(card, tmp_path):
+    """prove(profile_dir=) on the card: a Chrome trace with the prove's
+    span and the kernels' device intervals, whose idle share is a share."""
+    import json
+
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import prover, setup
+    from pil2_stark_tpu_torch.utils import timing
+
+    data = setup.read_setup("fibonacci_6")
+    const_cols, cm_cols, publics = fibonacci.build(data["references"], 64)
+    s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
+                         const_cols.buffer, device=card)
+    res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["constTree"],
+                       (cm_cols.buffer, publics), device=card, profile_dir=str(tmp_path))
+    with open(res["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"prove", "stage1.commit", "friPol"} <= names
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("poseidon" in k for k in kernels), sorted(kernels)[:20]
+    assert 0.0 <= timing.idle_share(res["trace"]) < 1.0

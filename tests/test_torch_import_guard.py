@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: with `jax` and `pil2_stark_tpu` blocked
-from import, every module of pil2_stark_tpu_torch imports and the port
-proves and verifies fibonacci 2^6 on the CPU.  Its sources name neither
-package in an import statement, and its entry points refuse to fall back
-to the CPU when no card is there."""
+from import, every module of pil2_stark_tpu_torch imports, the port
+proves and verifies fibonacci 2^6 on the CPU, and the Poseidon VM's
+builders, debug mode, fibv and the global constraints run.  Its sources
+name neither package in an import statement, and its entry points refuse
+to fall back to the CPU when no card is there."""
 import pathlib
 import re
 import subprocess
@@ -23,6 +24,7 @@ for name in names:
     importlib.import_module(name)
 from pil2_stark_tpu_torch.models import fibonacci
 from pil2_stark_tpu_torch.stark import prover, setup, verifier
+P = 0xFFFFFFFF00000001
 data = setup.read_setup("fibonacci_6")
 const_cols, cm_cols, publics = fibonacci.build(data["references"], 64)
 s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
@@ -31,6 +33,22 @@ res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["c
                    (cm_cols.buffer, publics), device="cpu")
 assert verifier.verify(res["proof"], res["publics"], s["constRoot"], s["starkInfo"],
                        s["verifierInfo"])
+# the VM's builders, debug mode, fibv, the global constraints and the
+# trace reader
+import numpy as np
+from pil2_stark_tpu_torch.hash import poseidon_gl
+from pil2_stark_tpu_torch.models import fibv, poseidon_vm
+from pil2_stark_tpu_torch.utils import timing
+vm = setup.read_setup("poseidon_vm_6_debug")
+inputs = np.random.default_rng(3).integers(0, poseidon_gl.gl64.P_INT, size=(2, 12), dtype=np.uint64)
+const_cols, cm_cols, _ = poseidon_vm.build(setup.read_setup("poseidon_vm_6")["references"], 64, inputs)
+assert (poseidon_vm.final_states(cm_cols.buffer) == poseidon_gl.permute(inputs)).all()
+assert prover.prove(vm["starkInfo"], vm["expressionsInfo"], const_cols.buffer, None,
+                    (cm_cols.buffer, []), debug=True, device="cpu") == []
+assert fibv.execute(101, 1, 2)[2][:3] == [101, 1, 2]
+codes = setup.read_setup("fibv_global")["constraints"]
+assert verifier.verify_global_constraints(codes, [[(1, 2, 3)], [(P - 1, P - 2, P - 3)]]) == []
+assert callable(timing.idle_share)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("IMPORTED", len(names))
 '''

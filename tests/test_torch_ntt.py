@@ -37,7 +37,8 @@ def test_ntt_intt_match_jax(bits, cols):
                                   jntt.intt_u64(x.T.copy(), bits).T)
 
 
-@pytest.mark.parametrize("bits,cols", [(2, 1), (5, 2), (8, 1), (9, 4), (11, 3), (13, 3), (14, 5)])
+@pytest.mark.parametrize("bits,cols", [(2, 1), (5, 2), (8, 1), (9, 4), (11, 3), (13, 3), (14, 5),
+                                       (13, 1)])  # one column above 2^12: B2 then B3
 def test_ntt_intt_match_host_oracle(bits, cols):
     x = _rand((cols, 1 << bits), bits * 10 + cols + 1)
     tx = torch_gl.from_u64(x)
@@ -48,7 +49,7 @@ def test_ntt_intt_match_host_oracle(bits, cols):
     np.testing.assert_array_equal(inv, ntt.ntt_host_u64(x.T.copy(), bits, inverse=True).T)
 
 
-@pytest.mark.parametrize("bits,ext_bits,cols", [(8, 10, 3), (13, 14, 2)])
+@pytest.mark.parametrize("bits,ext_bits,cols", [(8, 10, 3), (13, 14, 2), (10, 13, 1)])
 def test_lde_planar_matches_jax(bits, ext_bits, cols):
     x = _rand((cols, 1 << bits), bits + ext_bits + cols)
     got = torch_gl.to_u64(ntt.lde_planar(torch_gl.from_u64(x), bits, ext_bits))

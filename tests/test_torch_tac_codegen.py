@@ -243,3 +243,22 @@ def test_generated_source_has_no_dim_or_kind_branch():
         "if (r", "")
     loads = [ln.split("=")[1] for ln in body.splitlines() if "= ld(" in ln]
     assert len(loads) == len(set(loads))
+
+
+@pytest.mark.parametrize("name,which", [("fibv_module", "q"), ("poseidon_vm_6", "q"),
+                                        ("poseidon_vm_6", "imPols"), ("boundaries_6", "q")])
+def test_generated_program_matches_plain_new_setups(host, name, which):
+    """The Q program of a vadcop air (it reads a subproof value from the
+    scalar table), the Poseidon VM's 870-instruction Q program and its
+    im-pols, and the boundary machine's Q program (its Zi rows): the
+    generated rows against run_plain on random inputs."""
+    info, extend, progs, lib = host(name)
+    code, dom, prog = progs[which]
+    t_inputs, _ = _inputs(info, dom, extend, 7 * len(name) + len(which))
+    reads_sv = any(r["type"] == "subproofValue" for i in code["code"] for r in i["src"])
+    assert reads_sv == (name == "fibv_module")
+    rng = np.random.default_rng(len(name))
+    t_inputs["subproofValues"] = torch_gl.from_u64(
+        rng.integers(0, P, size=(max(info.get("nSubproofValues", 0), 1), 3), dtype=np.uint64))
+    got = run_host(lib, which, prog, t_inputs)
+    _assert_equal(got, torch_tac.run_plain(prog, t_inputs))

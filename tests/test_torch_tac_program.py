@@ -13,7 +13,8 @@ from pil2_stark_tpu_torch.ops import torch_tac
 from pil2_stark_tpu_torch.stark import setup as tsetup
 
 P = 0xFFFFFFFF00000001
-SETUPS = ["all_8", "all_20", "fibonacci_6", "fibonacci_6_split", "fibonacci_22"]
+SETUPS = ["all_8", "all_20", "fibonacci_6", "fibonacci_6_split", "fibonacci_22",
+          "boundaries_6", "poseidon_vm_20", "fibv_module"]
 
 
 def _compiled(name, which):
