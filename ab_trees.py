@@ -9,6 +9,14 @@ prove (its phases and per-phase peak memory), one process per checkout, in
 the order given.
 
     python3 ab_trees.py PARENT . . PARENT
+    python3 ab_trees.py --vm PARENT . . PARENT
+
+With --vm, each checkout instead builds its kernel sources and the
+Poseidon VM 2^20 setup's T1 programs, then runs its own
+``chip_smoke.phase_prove`` on the VM (setups/poseidon_vm_20.json: cold
+and warm prove, verify) and reports the prove times, the phase table
+(``init`` first) and the peaks: the A/B of a change to the prove's set-up
+work, such as where the fixed columns come from.
 
 Each argument is the root of a checkout of this repository (for the parent
 commit, unpack `git archive <commit>` into a directory that .gitignore
@@ -102,6 +110,35 @@ c.phase_prove(dev, "{SETUP}", counters)
 """
 
 
+VM_SETUP = "poseidon_vm_20"
+
+VM_SNIPPET = f"""
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from pil2_stark_tpu_torch.ops import torch_tac
+from pil2_stark_tpu_torch.stark import setup as stark_setup
+from pil2_stark_tpu_torch.utils import cuda_build
+cuda_build.build()
+data = stark_setup.read_setup("{VM_SETUP}")
+torch_tac.build_programs(data["starkInfo"], data["expressionsInfo"])
+c.phase_prove(torch.device("cuda", 0), "{VM_SETUP}", c.prove_counters())
+"""
+
+
+def run_vm_tree(root: str) -> dict:
+    out = subprocess.run([sys.executable, "-c", VM_SNIPPET], cwd=root, capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"{root}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+    prove = next(ln for ln in lines if ln.get("phase") == "prove_vm")
+    keys = ("verified", "cold_s", "warm_s", "load_setup_s", "peak_device_bytes",
+            "phases_warm_s", "phases_cold_s", "phases_peak_bytes", "launches",
+            "fixed_uploads_per_prove", "compiled_by_port")
+    return dict({"tree": os.path.abspath(root)}, **{k: prove[k] for k in keys if k in prove})
+
+
 def run_tree(root: str) -> dict:
     out = subprocess.run([sys.executable, "-c", SNIPPET], cwd=root, capture_output=True,
                          text=True, timeout=900)
@@ -125,9 +162,12 @@ def main(roots) -> int:
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
+    run = run_tree
+    if roots[0] == "--vm":
+        run, roots = run_vm_tree, roots[1:]
     ok = True
     for root in roots:
-        r = run_tree(root)
+        r = run(root)
         ok &= bool(r["verified"])
         print(json.dumps(r), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,6 +13,10 @@ Phases, each printing one JSON line:
                    instructions per permutation by
                    class (cuobjdump) of B4 and of the schedule before it,
                    which X1 still runs;
+  1b. compile    — compile every committed setup (setups/*.json: 10
+                   STARK setups, 2 debug setups, the 5 fibv files) with the
+                   port's PIL compiler (stark/catalog.py; no JAX here) and
+                   require each to equal its JSON; seconds per file;
   2. kernels     — run each kernel at the shapes each prove path gives it
                    (B2 level_planar and B3 base_grid at the widest planar
                    transforms, with each pass's ptxas counts, B4 Poseidon
@@ -55,13 +59,19 @@ Phases, each printing one JSON line:
                    row route, setups/fibonacci_22.json);
   8. prove_vm    — the same for the Poseidon VM at 2^20 rows (2^15
                    permutations of random states, nBitsExt 23, 32
-                   queries, setups/poseidon_vm_20.json), the widest machine:
-                   39 fixed, 12 witness and 21 Q columns; the trace's last
-                   states must equal the host permutation;
+                   queries), the widest machine: 39 fixed, 12 witness and
+                   21 Q columns; its setup is made here by the port:
+                   compile_pil_source(poseidon_vm.pil_source(20)), then
+                   stark_setup and prove on the default device (None:
+                   the card), and the setup must equal
+                   setups/poseidon_vm_20.json; the trace's last states must
+                   equal the host permutation;
   9. profile     — one warm prove each of the VM and fibonacci 2^22 under
                    prove(profile_dir=): the card's idle share over the prove
                    (utils/timing.py::idle_share) and the device's top
                    operations by time.
+Every prove must upload the fixed columns zero times (the const tree keeps
+them on the card; fixed_uploads_per_prove, cold and warm).
 In each prove phase the kernels' launch counters are zeroed just before the
 cold prove and read just after it, and every kernel must have launched (B1,
 B2, B3, B4; T1 three times, once per program, and T2 once); B1's kernel
@@ -371,6 +381,27 @@ def phase_build():
              for p, label in passes.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": times,
           "ptxas": ptxas, "b1_t2_ptxas": b1_t2, "b2_b3_ptxas": b2_b3, "b4_sass": sass})
+
+
+def phase_compile():
+    """Compile every committed setup with the port's PIL compiler (no JAX
+    here) and require each to equal its JSON."""
+    from pil2_stark_tpu_torch.stark import catalog, setup as stark_setup
+
+    t_all = time.perf_counter()
+    cases, differ = {}, []
+    for name in catalog.FILES:
+        t0 = time.perf_counter()
+        fresh = catalog.compile_file(name)
+        secs = time.perf_counter() - t0
+        equal = fresh == stark_setup.read_setup(name)
+        cases[name] = {"s": secs, "equal": equal}
+        if not equal:
+            differ.append(name)
+    emit({"phase": "compile", "seconds": time.perf_counter() - t_all, "n_files": len(cases),
+          "cases": cases})
+    if differ:
+        raise AssertionError(f"the port's compile differs from the committed setups: {differ}")
 
 
 def phase_kernels(device):
@@ -977,15 +1008,29 @@ def phase_large_ntt(device, bits, n_cols):
 
 
 def phase_prove(device, setup_name, counters):
-    """Prove one committed setup on the card, cold then warm; verify."""
+    """Prove one committed setup on the card, cold then warm; verify.  The
+    VM's setup is compiled by the port from its PIL source and set up by
+    stark_setup on the card, and must equal the committed one.  Every prove
+    must upload the fixed columns zero times."""
+    import numpy as np
     import torch
 
+    from pil2_stark_tpu_torch.compiler import pil1_parser
+    from pil2_stark_tpu_torch.field import torch_gl
     from pil2_stark_tpu_torch.hash import poseidon_gl
-    from pil2_stark_tpu_torch.models import poseidon_vm
+    from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
     from pil2_stark_tpu_torch.ops import cuda_ntt
     from pil2_stark_tpu_torch.stark import prover, setup as stark_setup, verifier
 
     data = stark_setup.read_setup(setup_name)
+    compiled = {}
+    if setup_name == VM_SETUP:
+        # the VM's setup comes from the port's compiler, here, from its source
+        t0 = time.perf_counter()
+        pil = pil1_parser.compile_pil_source(poseidon_vm.pil_source(VM_N_BITS))
+        pil["name"] = "PoseidonVM"
+        compiled["parse_s"] = time.perf_counter() - t0
+        data = dict(data, references=pil["references"])
     t0 = time.perf_counter()
     const_cols, cm_cols, publics = machine_columns(data)
     t_build = time.perf_counter() - t0
@@ -995,27 +1040,57 @@ def phase_prove(device, setup_name, counters):
         states_ok = bool((poseidon_vm.final_states(cm_cols.buffer)
                           == poseidon_gl.permute(vm_inputs(n))).all())
     t0 = time.perf_counter()
-    setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
-                                   data["verifierInfo"], const_cols.buffer, device=device)
+    # the VM's setup and proves take the default device, as a user's would
+    prove_device = None if compiled else device
+    if compiled:
+        setup = stark_setup.stark_setup(const_cols.buffer, pil,
+                                        gadgets.stark_struct(VM_N_BITS, VM_BITS, n_queries=32),
+                                        device=prove_device)
+        compiled["equals_committed"] = {
+            k: json.loads(json.dumps(setup[k])) == data[k]
+            for k in ("starkInfo", "expressionsInfo", "verifierInfo")}
+    else:
+        setup = stark_setup.load_setup(data["starkInfo"], data["expressionsInfo"],
+                                       data["verifierInfo"], const_cols.buffer, device=device)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
 
+    # uploads of the fixed columns: calls of gl.from_u64 on the (nConstants,
+    # N) fixed columns (told from a witness section of that shape by their
+    # first 64 rows, so the count costs the timed prove no full compare);
+    # the const tree keeps them on the card (fault C3)
+    fixed_t = const_cols.buffer.T
+    uploads = [0]
+    real_from_u64 = torch_gl.from_u64
+
+    def counting_from_u64(a, dev=None):
+        arr = np.asarray(a)
+        if arr.shape == fixed_t.shape and np.array_equal(arr[:, :64], fixed_t[:, :64]):
+            uploads[0] += 1
+        return real_from_u64(a, dev)
+
     def run():
         t = time.perf_counter()
-        res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
-                           setup["constTree"], (cm_cols.buffer, publics), device=device)
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
+        uploads[0] = 0
+        torch_gl.from_u64 = counting_from_u64
+        try:
+            res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
+                               setup["constTree"], (cm_cols.buffer, publics),
+                               device=prove_device)
+            torch.cuda.synchronize()
+        finally:
+            torch_gl.from_u64 = real_from_u64
+        return res, time.perf_counter() - t, uploads[0]
 
     for c in counters:
         c.launches = 0
     cuda_ntt.base_rows.shapes.clear()  # B1's launches by (rows, lanes)
-    res, cold = run()
+    res, cold, uploads_cold = run()
     launches = {c.__name__: c.launches for c in counters}
     b1 = {f"{n}x{lanes}": k for (n, lanes), k in sorted(cuda_ntt.base_rows.shapes.items())}
     miscounted = {k: (launches[k], v) for k, v in PROVE_LAUNCHES.items()
                   if k in launches and launches[k] != v}
-    res_warm, warm = run()
+    res_warm, warm, uploads_warm = run()
     peak = max(res_warm["peakBytes"].values())  # every allocation happens inside a phase
     same = canon(res["proof"]) == canon(res_warm["proof"])
     t0 = time.perf_counter()
@@ -1032,6 +1107,8 @@ def phase_prove(device, setup_name, counters):
           "peak_device_bytes": peak, "phases_warm_s": res_warm["timings"],
           "phases_cold_s": res["timings"], "phases_peak_bytes": res_warm["peakBytes"],
           "launches": launches, "b1_launches_by_shape": b1,
+          "fixed_uploads_per_prove": [uploads_cold, uploads_warm],
+          **({"compiled_by_port": compiled} if compiled else {}),
           "n_columns": {k: v for k, v in data["starkInfo"]["mapSectionsN"].items() if v},
           **({"final_states_equal_permute": states_ok} if states_ok is not None else {})})
     del setup, res, res_warm
@@ -1039,6 +1116,12 @@ def phase_prove(device, setup_name, counters):
     if not (ok and same) or states_ok is False:
         raise AssertionError(f"the {setup_name} proof does not verify or is not repeatable, "
                              f"or its trace is not the permutation")
+    if compiled and not all(compiled["equals_committed"].values()):
+        raise AssertionError(f"the port's {setup_name} setup differs from the committed one: "
+                             f"{compiled['equals_committed']}")
+    if uploads_cold or uploads_warm:
+        raise AssertionError(f"the {setup_name} proves uploaded the fixed columns "
+                             f"{[uploads_cold, uploads_warm]} times")
     zero = [k for k, v in launches.items() if v == 0]
     if zero:
         raise AssertionError(f"kernels never launched on the {setup_name} prove: {zero}")
@@ -1152,6 +1235,7 @@ def main():
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     phase_build()
+    phase_compile()
     rows = phase_kernels(device)
     tool_rows, launches = phase_tools(device, rows)
     phase_small(device)

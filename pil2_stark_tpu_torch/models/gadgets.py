@@ -1,28 +1,56 @@
 """State machines exercising each eSTARK argument: plookup, permutation,
 connection (copy-constraints), and the combined "all" machine.
 
-Witness generators mirror the reference fixtures (pil2-stark-js
-test/state_machines/sm_plookup/sm_plookup.js, sm_permutation/sm_permutation.js,
-sm_connection/sm_connection.js, sm/sm_global.js, sm_all/all_main.pil).  The
-PIL sources and their compiled setups live with the JAX package
-(models/gadgets.py) and in setups/all_*.json; the per-row loops of the JAX
-generators are vectorized here where the rows are independent."""
+PIL sources and witness generators mirror the reference fixtures
+(pil2-stark-js test/state_machines/sm_plookup/sm_plookup.js,
+sm_permutation/sm_permutation.js, sm_connection/sm_connection.js,
+sm/sm_global.js, sm_all/all_main.pil); their compiled setups are committed
+as setups/all_*.json.  The per-row loops of the JAX generators are
+vectorized here where the rows are independent."""
 from __future__ import annotations
 
 import numpy as np
 
+from ..compiler.pil1_libs import get_ks
 from ..field import gl64
 
-K_GEN = 12275445934081160404  # F.k = 7^(2^32), f3g.js:26
+GLOBAL_PIL = """
+namespace Global(%N);
+    pol constant L1;
+"""
+
+PLOOKUP_PIL = """
+namespace Plookup(%N);
+
+    pol commit sel, a, b;
+    pol commit cc;
+
+    pol constant SEL, A, B;
+
+    sel {a, b', a*b'} in SEL {A, B, cc};
+"""
+
+PERMUTATION_PIL = """
+namespace Permutation(%N);
+
+    pol commit a, b;
+    pol commit c, d;
+    pol commit selC, selD;
+
+    selC {c, c} is selD {d, d};
+"""
+
+CONNECTION_PIL = """
+namespace Connection(%N);
+    pol constant S1, S2, S3;
+    pol commit a,b,c;
+
+    {a, b, c} connect {S1, S2, S3};
+"""
 
 
-def get_ks(n: int):
-    """pilcom getKs: successive powers of F.k (coset labels for connection);
-    a copy of pil2_stark_tpu/compiler/pil1_libs.get_ks for the GL field."""
-    ks = [K_GEN]
-    for _ in range(1, n):
-        ks.append((ks[-1] * K_GEN) % gl64.P_INT)
-    return ks
+def source(parts, n_bits):
+    return f"constant %N = 2**{n_bits};\n" + "\n".join(parts)
 
 
 def build_global_constants(n, pols):
@@ -114,6 +142,28 @@ def execute_connection(n, pols):
 # -- assembled machines -----------------------------------------------------
 
 
+def plookup_source(n_bits):
+    return source([GLOBAL_PIL, PLOOKUP_PIL], n_bits)
+
+
+def permutation_source(n_bits):
+    return source([GLOBAL_PIL, PERMUTATION_PIL], n_bits)
+
+
+def connection_source(n_bits):
+    return source([GLOBAL_PIL, CONNECTION_PIL], n_bits)
+
+
+def all_source(n_bits):
+    from . import fibonacci
+
+    fib = fibonacci.PIL_SOURCE.format(nbits=n_bits).split("namespace", 1)[1]
+    return source(
+        [GLOBAL_PIL, "namespace" + fib, CONNECTION_PIL, PERMUTATION_PIL, PLOOKUP_PIL],
+        n_bits,
+    )
+
+
 def build_all(references: dict, n: int):
     """Fixed columns, witness columns and publics of the "all" machine."""
     from ..stark import witness
@@ -130,3 +180,20 @@ def build_all(references: dict, n: int):
     fibonacci.build_constants(n, const_cols.Fibonacci)
     out = fibonacci.execute(n, cm_cols.Fibonacci, [1, 2])
     return const_cols, cm_cols, [1, 2, out]
+
+
+def stark_struct(n_bits, n_bits_ext=None, n_queries=8):
+    n_bits_ext = n_bits_ext if n_bits_ext is not None else n_bits + 1
+    steps = []
+    b = n_bits_ext
+    while b > 3:
+        steps.append({"nBits": b})
+        b -= 3
+    steps.append({"nBits": b})
+    return {
+        "nBits": n_bits,
+        "nBitsExt": n_bits_ext,
+        "nQueries": n_queries,
+        "verificationHashType": "GL",
+        "steps": steps,
+    }

@@ -8,8 +8,9 @@ Builders of pil2_stark_tpu/models/poseidon_vm.py (``_round_schedule`` :81,
 scalars in python, which at 2^20 rows (32,768 permutations) would take
 hours.  Here ``build_constants`` tiles the 32-row schedule and ``execute``
 runs each of the 30 rounds on all K states at once as (K, 12) arrays; the
-columns are the JAX builders' bit for bit.  The PIL source and its
-compiled setups live with the JAX package and in setups/poseidon_vm_*.json.
+columns are the JAX builders' bit for bit.  ``pil_source`` is the JAX
+package's PIL source (:34-78); its compiled setups are committed as
+setups/poseidon_vm_*.json.
 
 Layout (32 rows per permutation: 30 round-entry rows, the final state,
 and a copy of it as padding):
@@ -27,6 +28,52 @@ from ..hash import poseidon_gl as pg
 
 ROWS_PER_PERM = 32
 ROUNDS = 30
+
+PIL_SOURCE_HEADER = """
+constant %N = 2**{n_bits};
+
+namespace Global(%N);
+    pol constant L1;
+
+namespace PoseidonVM(%N);
+    pol constant {fixed_decl};
+    pol commit {witness_decl};
+"""
+
+
+def _pow7_expr(s):
+    return f"({s}*{s}*{s}*{s}*{s}*{s}*{s})"
+
+
+def pil_source(n_bits: int) -> str:
+    fixed = [f"C{i}" for i in range(12)] + [f"SC{i}" for i in range(23)] + [
+        "SELM",
+        "SELP",
+        "SELPART",
+    ]
+    witness = [f"s{i}" for i in range(12)]
+    src = PIL_SOURCE_HEADER.format(
+        n_bits=n_bits,
+        fixed_decl=", ".join(fixed),
+        witness_decl=", ".join(witness),
+    )
+    lines = []
+    # t_k = pow7(s_k) + C_k  (shared sub-expressions as im pols)
+    for k in range(12):
+        lines.append(f"    pol t{k} = {_pow7_expr(f's{k}')} + C{k};")
+    for mat, sel in ((pg.M, "SELM"), (pg.P, "SELP")):
+        for j in range(12):
+            terms = " + ".join(f"{int(mat[k][j])}*t{k}" for k in range(12))
+            lines.append(f"    {sel}*(s{j}' - ({terms})) = 0;")
+    # partial round
+    lines.append(f"    pol x0 = {_pow7_expr('s0')} + C0;")
+    new0 = " + ".join(
+        ["SC0*x0"] + [f"SC{j}*s{j}" for j in range(1, 12)]
+    )
+    lines.append(f"    SELPART*(s0' - ({new0})) = 0;")
+    for k in range(1, 12):
+        lines.append(f"    SELPART*(s{k}' - s{k} - x0*SC{11 + k}) = 0;")
+    return src + "\n".join(lines) + "\n"
 
 
 def _round_schedule():

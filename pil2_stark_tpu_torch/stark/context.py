@@ -65,7 +65,11 @@ class ProverCtx:
             self.buffers[f"cm{i + 1}_n"] = np.zeros((self.N, w), dtype=np.uint64)
         self._x_n = None
 
-        const_n = gl.from_u64(np.ascontiguousarray(self.const_n.T), device)
+        # the const tree keeps the base-domain columns on the device
+        # (setup.load_setup): proves from one setup share them, read only
+        const_n = None if const_tree is None else const_tree.base
+        if const_n is None or const_n.device != device:
+            const_n = gl.from_u64(np.ascontiguousarray(self.const_n.T), device)
         if debug:
             self.dx = {"n": gl.powers(gl64.w(self.n_bits), self.N, device)}
             self.dsections = {"n": {"const": const_n}}
@@ -183,8 +187,12 @@ def _to_array(values, dim) -> np.ndarray:
 
 def resolve_device(device) -> torch.device:
     """None means the card: raises when CUDA is unavailable, never falls
-    back to the CPU."""
+    back to the CPU.  A card without an index is the current one, so that
+    the result equals the device of the tensors made on it."""
     dev_ = torch.device("cuda" if device is None else device)
-    if dev_.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to prove on the CPU")
+    if dev_.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to prove on the CPU")
+        if dev_.index is None:
+            dev_ = torch.device("cuda", torch.cuda.current_device())
     return dev_

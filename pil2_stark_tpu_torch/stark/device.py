@@ -157,13 +157,17 @@ class DeviceTree:
     """Poseidon-GL Merkle tree whose elements (width, height) and digest
     levels (4, n) stay on the device; same shape as hash.merkle.MerkleTree.
     uniform=True: a zero-width power-of-two tree, every node of a level the
-    same digest, each level stored as one (4, 1) column."""
+    same digest, each level stored as one (4, 1) column.  base: the planar
+    (width, N) base-domain columns the elements were extended from, where
+    the tree keeps them (the const tree of stark.setup.load_setup, so that
+    no prove uploads the fixed columns again); proves only read it."""
 
     width: int
     height: int
     elements: torch.Tensor
     levels: list
     uniform: bool = False
+    base: torch.Tensor | None = None
 
     @functools.cached_property
     def root(self) -> np.ndarray:

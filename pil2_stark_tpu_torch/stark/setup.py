@@ -1,13 +1,16 @@
-"""STARK setup, device half: extend and Merkelize the fixed columns.
+"""STARK setup: compile the constraint system, extend and Merkelize the
+fixed columns.
 
-The port does not compile PIL.  It takes the artifacts the JAX compiler
-emits (``starkInfo``, ``expressionsInfo``, ``verifierInfo``, committed as
-JSON under ``setups/``) the way the reference's prover takes
-``starkinfo.json``, plus the fixed columns, and builds the constant tree on
-the device with its own LDE and Merkle code — the non-compiler half of
-pil2_stark_tpu/stark/setup.py:30-45.  On a CUDA device it also builds
-kernel T1 for the setup's TAC programs (ops/torch_tac.build_programs), so
-that no prove waits on nvcc.
+``stark_setup`` is the port of pil2_stark_tpu/stark/setup.py:16: the
+port's own PIL compiler (compiler/pilinfo.py) makes ``starkInfo``,
+``expressionsInfo`` and ``verifierInfo``, and ``load_setup`` builds the
+constant tree on the device with the port's LDE and Merkle code.
+``load_setup`` also takes artifacts compiled before (the JSON committed
+under ``setups/``, ``read_setup``) the way the reference's prover takes
+``starkinfo.json``.  On a CUDA device it builds kernel T1 for the setup's
+TAC programs (ops/torch_tac.build_programs), so that no prove waits on
+nvcc, and the const tree keeps the base-domain fixed columns on the device
+(``DeviceTree.base``), so that no prove uploads them again.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..compiler.pilinfo import pil_info as compile_pil_info
 from ..field import torch_gl as gl
 from ..ops import ntt as ntt_ops
 from ..ops import torch_tac
@@ -36,8 +40,9 @@ def load_setup(stark_info: dict, expressions_info: dict, verifier_info: dict,
                const_pols: np.ndarray, device=None) -> dict:
     """const_pols: (N, nConstants) u64.  Returns {starkInfo, expressionsInfo,
     verifierInfo, fixedPols, constTree, constRoot}; the const tree is a
-    DeviceTree on `device` (None means "cuda").  On CUDA, T1 is built for
-    the im-pol, Q and FRI programs first."""
+    DeviceTree on `device` (None means "cuda") that keeps the (nConstants,
+    N) base-domain columns as ``base``.  On CUDA, T1 is built for the
+    im-pol, Q and FRI programs first."""
     device = resolve_device(device)
     if device.type == "cuda":
         torch_tac.build_programs(stark_info, expressions_info)
@@ -52,6 +57,7 @@ def load_setup(stark_info: dict, expressions_info: dict, verifier_info: dict,
         const_ext = const_n.new_zeros((0, 1 << n_bits_ext))
     tree = dev.merkelize(const_ext, n_constants, 1 << n_bits_ext,
                          ss.get("splitLinearHash", False))
+    tree.base = const_n
     return {
         "starkInfo": stark_info,
         "expressionsInfo": expressions_info,
@@ -60,3 +66,20 @@ def load_setup(stark_info: dict, expressions_info: dict, verifier_info: dict,
         "constTree": tree,
         "constRoot": tree.root,
     }
+
+
+def stark_setup(const_pols, pil: dict, stark_struct: dict, options=None, device=None) -> dict:
+    """pil2_stark_tpu/stark/setup.py:16: compile `pil` (the pilcom-style
+    dict of compiler.pil1_parser.compile_pil_source) under `stark_struct`,
+    then build the const tree of const_pols ((N, nConstants) u64) on
+    `device` (None means "cuda") through ``load_setup``.
+    options["skipConstTree"]: compile only.  Returns {starkInfo,
+    expressionsInfo, verifierInfo, fixedPols[, constTree, constRoot]}."""
+    options = options or {}
+    info = compile_pil_info(pil, stark=True, stark_struct=stark_struct, options=options)
+    if options.get("skipConstTree"):
+        return {"fixedPols": const_pols, "starkInfo": info["pilInfo"],
+                "expressionsInfo": info["expressionsInfo"],
+                "verifierInfo": info["verifierInfo"]}
+    return load_setup(info["pilInfo"], info["expressionsInfo"], info["verifierInfo"],
+                      const_pols, device=device)

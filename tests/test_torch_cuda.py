@@ -344,6 +344,33 @@ def test_fibonacci_proof_on_card_equals_cpu(card):
     assert out[0] == out[1]
 
 
+def test_compiled_setup_proves_on_the_default_device(card):
+    """stark_setup and prove with device=None (the card a user gets): the
+    const tree keeps the fixed columns on the card, two proves read them
+    there and equal the CPU's proof from the committed setup."""
+    import copy
+
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import catalog, context, prover, setup
+
+    assert context.resolve_device(None) == torch.device("cuda", torch.cuda.current_device())
+    pil = catalog.machine_pil("fibonacci", 6)
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
+    s = setup.stark_setup(const_cols.buffer, pil, copy.deepcopy(fibonacci.STARK_STRUCT))
+    base = s["constTree"].base
+    assert base.device == card
+    data = setup.read_setup("fibonacci_6")
+    ref = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
+                           const_cols.buffer, device="cpu")
+    want = prover.prove(ref["starkInfo"], ref["expressionsInfo"], const_cols.buffer,
+                        ref["constTree"], (cm_cols.buffer, publics), device="cpu")
+    for _ in range(2):
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics))
+        assert _canon(res["proof"]) == _canon(want["proof"])
+    assert torch.equal(base.cpu(), torch_gl.from_u64(const_cols.buffer.T))
+
+
 def _canon(o):
     if isinstance(o, np.ndarray):
         return [_canon(x) for x in o.tolist()]

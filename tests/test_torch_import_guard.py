@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: with `jax` and `pil2_stark_tpu` blocked
 from import, every module of pil2_stark_tpu_torch imports, the port
-proves and verifies fibonacci 2^6 on the CPU, and the Poseidon VM's
+compiles fibonacci 2^6 to its committed setup, sets it up, proves and
+verifies it on the CPU, and the Poseidon VM's
 builders, debug mode, fibv and the global constraints run.  Its sources
 name neither package in an import statement, and its entry points refuse
 to fall back to the CPU when no card is there."""
@@ -22,13 +23,17 @@ import pil2_stark_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pil2_stark_tpu_torch.__path__, "pil2_stark_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import copy
 from pil2_stark_tpu_torch.models import fibonacci
-from pil2_stark_tpu_torch.stark import prover, setup, verifier
+from pil2_stark_tpu_torch.stark import catalog, prover, setup, verifier
 P = 0xFFFFFFFF00000001
 data = setup.read_setup("fibonacci_6")
-const_cols, cm_cols, publics = fibonacci.build(data["references"], 64)
-s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
-                     const_cols.buffer, device="cpu")
+# the port's compiler, alone, gives the committed setup
+assert catalog.compile_file("fibonacci_6") == data
+pil = catalog.machine_pil("fibonacci", 6)
+const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
+s = setup.stark_setup(const_cols.buffer, pil, copy.deepcopy(fibonacci.STARK_STRUCT),
+                      device="cpu")
 res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["constTree"],
                    (cm_cols.buffer, publics), device="cpu")
 assert verifier.verify(res["proof"], res["publics"], s["constRoot"], s["starkInfo"],

@@ -10,6 +10,7 @@ bit.
 """
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -19,6 +20,16 @@ from pil2_stark_tpu_torch.field import torch_gl
 from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
 
 P = 0xFFFFFFFF00000001
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """torch's multi-threaded int64 ops are slow on small CPU tensors: a
+    2^14 x 5 NTT takes seconds on 8 threads and tens of ms on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rand(shape, seed):
