@@ -46,7 +46,11 @@ Phases, each printing one JSON line:
                    subproof values and reject a changed one, and
                    prove(debug=True) on the card must find no error in the
                    VM's witness and the CPU's errors in one with a flipped
-                   state element;
+                   state element; fibonacci 2^6 with BN128 trees (arity
+                   16, merkleTreeCustom false and true: trees on the host,
+                   transforms and T1/T2 on the card) must equal the CPU's
+                   proof, verify and upload the fixed columns zero times,
+                   with the host seconds of each BN128 tree;
   5. large_ntt   — a 2^25-point transform of 3 columns (the row route on
                    B1): intt(ntt(x)) == x, ntt equal to the same route with
                    the plain B1, and 4 outputs equal to a host evaluation of
@@ -66,6 +70,23 @@ Phases, each printing one JSON line:
                    the card), and the setup must equal
                    setups/poseidon_vm_20.json; the trace's last states must
                    equal the host permutation;
+  8b. cli        — the port's CLI (python -m pil2_stark_tpu_torch) on the
+                   VM with prove_vm's inputs, its files under the
+                   gitignored pil2_stark_tpu_torch/_build/cli/ (removed
+                   after): `prove` from pil.json, const.npy, commit.npy
+                   and publics.json in this process, launches counted as
+                   in a prove phase, the fixed columns uploaded once (by
+                   the setup) and never by the prove, proof.json equal to
+                   prove_vm's proof; `verify` in a fresh process (exit 0;
+                   exit 1 with one evaluation changed); `buildconsttree`
+                   from a PSTC container of the fixed columns (about 3.15
+                   GB of tree and 2.94 GB of consts written: its verkey
+                   the prove's, read_tree's root that root, four random
+                   rows equal to the card's LDE); `genstarkinfo` from the
+                   VM's PIL source equal to the committed starkInfo; then
+                   `prove --model fibonacci --nbits 6` and `verify` (exit
+                   0; exit 1 with a public changed) in fresh processes on
+                   the default device; seconds per subcommand and bytes;
   9. profile     — one warm prove each of the VM and fibonacci 2^22 under
                    prove(profile_dir=): the card's idle share over the prove
                    (utils/timing.py::idle_share) and the device's top
@@ -76,7 +97,8 @@ In each prove phase the kernels' launch counters are zeroed just before the
 cold prove and read just after it, and every kernel must have launched (B1,
 B2, B3, B4; T1 three times, once per program, and T2 once); B1's kernel
 launches are also reported by shape (two per base of more than 64 rows).  B2 and B3 count
-two launches per call above 2^6 points (their two passes).
+two launches per call above 2^6 points (their two passes).  The cli
+phase's launches are the kernels line's `launches_by_path["cli"]`.
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
 card; imports nothing of JAX.
@@ -348,7 +370,7 @@ def tac_programs():
     from pil2_stark_tpu_torch.utils import cuda_build
 
     out = {}
-    for name in (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP, "boundaries_6") + FIBV_AIRS:
+    for name in (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP, "boundaries_6", "fibonacci_6") + FIBV_AIRS:
         data = stark_setup.read_setup(name)
         for which, prog in torch_tac.setup_programs(data["starkInfo"],
                                                     data["expressionsInfo"]).items():
@@ -866,9 +888,46 @@ def _prove_fibv(name, device, ext):
     return res, setup
 
 
+def _prove_bn128(device, custom):
+    """fibonacci 2^6 with BN128 trees at arity 16 (tests/test_bn128.py:59)
+    set up and proved on `device`: (setup, result, fixed-column uploads of
+    the prove, [(width, height, host seconds)] of each BN128 tree the prove
+    built)."""
+    import copy
+
+    from pil2_stark_tpu_torch.hash import mh
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import catalog, prover, setup as stark_setup
+
+    pil = catalog.machine_pil("fibonacci", 6)
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
+    ss = dict(copy.deepcopy(fibonacci.STARK_STRUCT), verificationHashType="BN128",
+              merkleTreeArity=16, merkleTreeCustom=custom)
+    setup = stark_setup.stark_setup(const_cols.buffer, pil, ss, device=device)
+    trees = []
+    real_merkelize = mh.MerkleHashBN128.merkelize
+
+    def timed_merkelize(self, cols, width, height):
+        t = time.perf_counter()
+        tree = real_merkelize(self, cols, width, height)
+        trees.append((width, height, time.perf_counter() - t))
+        return tree
+
+    mh.MerkleHashBN128.merkelize = timed_merkelize
+    try:
+        with fixed_uploads(const_cols.buffer) as uploads:
+            res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
+                               setup["constTree"], (cm_cols.buffer, publics), device=device)
+    finally:
+        mh.MerkleHashBN128.merkelize = real_merkelize
+    return setup, res, uploads[0], trees
+
+
 def phase_small(device):
     """Each small case proved on the card and on the CPU: identical proofs
-    that verify; the fibv global constraint; debug mode on the card."""
+    that verify; the fibv global constraint; debug mode on the card;
+    fibonacci 2^6 with BN128 trees (plain and custom), with no upload of
+    the fixed columns and the host seconds of its trees."""
     import numpy as np
 
     from pil2_stark_tpu_torch.models import poseidon_vm
@@ -936,6 +995,27 @@ def phase_small(device):
     if (errors["valid"][0] or not errors["flipped"][0] or errors["valid"] != [[], []]
             or errors["flipped"][0] != errors["flipped"][1] or final.shape != (2, 12)):
         failed.append("debug")
+
+    # BN128 trees (the final recursion tier): host trees, card transforms
+    for custom in (False, True):
+        t0 = time.perf_counter()
+        s_gpu, res_gpu, uploads, trees = _prove_bn128(device, custom)
+        s_cpu, res_cpu, _, _ = _prove_bn128("cpu", custom)
+        same = (canon(res_gpu["proof"]) == canon(res_cpu["proof"])
+                and res_gpu["challenges"] == res_cpu["challenges"]
+                and s_gpu["constRoot"] == s_cpu["constRoot"])
+        ok = verifier.verify(res_gpu["proof"], res_gpu["publics"], s_gpu["constRoot"],
+                             s_gpu["starkInfo"], s_gpu["verifierInfo"])
+        tree_s = sum(t for _, _, t in trees)
+        leaves = sum(h for _, h, _ in trees)
+        emit({"phase": "small", "setup": "fibonacci_6_bn128", "merkleTreeArity": 16,
+              "merkleTreeCustom": custom, "identical": same, "verified": ok,
+              "fixed_uploads": uploads, "prove_s": res_gpu["timings"],
+              "bn128_trees_width_height_s": trees, "bn128_tree_s": tree_s,
+              "bn128_tree_s_per_1000_leaves": 1000 * tree_s / leaves,
+              "seconds": time.perf_counter() - t0})
+        if not (same and ok) or uploads:
+            failed.append(f"fibonacci_6_bn128{'_custom' if custom else ''}")
     if failed:
         raise AssertionError(f"small: card and CPU proofs differ or a check failed: {failed}")
 
@@ -1007,16 +1087,43 @@ def phase_large_ntt(device, bits, n_cols):
         raise AssertionError(f"the 2^{bits} transform is wrong or skipped B1")
 
 
+@contextlib.contextmanager
+def fixed_uploads(fixed):
+    """Count the uploads of the fixed columns: calls of gl.from_u64 on the
+    (nConstants, N) fixed columns (told from a witness section of that
+    shape by their first 64 rows, so the count costs a timed prove no full
+    compare); the const tree keeps them on the card (fault C3).  Yields a
+    one-element list holding the count."""
+    import numpy as np
+
+    from pil2_stark_tpu_torch.field import torch_gl
+
+    fixed_t = np.asarray(fixed).T
+    count = [0]
+    real_from_u64 = torch_gl.from_u64
+
+    def counting_from_u64(a, dev=None):
+        arr = np.asarray(a)
+        if arr.shape == fixed_t.shape and np.array_equal(arr[:, :64], fixed_t[:, :64]):
+            count[0] += 1
+        return real_from_u64(a, dev)
+
+    torch_gl.from_u64 = counting_from_u64
+    try:
+        yield count
+    finally:
+        torch_gl.from_u64 = real_from_u64
+
+
 def phase_prove(device, setup_name, counters):
     """Prove one committed setup on the card, cold then warm; verify.  The
     VM's setup is compiled by the port from its PIL source and set up by
     stark_setup on the card, and must equal the committed one.  Every prove
-    must upload the fixed columns zero times."""
-    import numpy as np
+    must upload the fixed columns zero times.  Returns the cold prove's
+    launches and its {proof, publics}."""
     import torch
 
     from pil2_stark_tpu_torch.compiler import pil1_parser
-    from pil2_stark_tpu_torch.field import torch_gl
     from pil2_stark_tpu_torch.hash import poseidon_gl
     from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
     from pil2_stark_tpu_torch.ops import cuda_ntt
@@ -1055,31 +1162,13 @@ def phase_prove(device, setup_name, counters):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
 
-    # uploads of the fixed columns: calls of gl.from_u64 on the (nConstants,
-    # N) fixed columns (told from a witness section of that shape by their
-    # first 64 rows, so the count costs the timed prove no full compare);
-    # the const tree keeps them on the card (fault C3)
-    fixed_t = const_cols.buffer.T
-    uploads = [0]
-    real_from_u64 = torch_gl.from_u64
-
-    def counting_from_u64(a, dev=None):
-        arr = np.asarray(a)
-        if arr.shape == fixed_t.shape and np.array_equal(arr[:, :64], fixed_t[:, :64]):
-            uploads[0] += 1
-        return real_from_u64(a, dev)
-
     def run():
         t = time.perf_counter()
-        uploads[0] = 0
-        torch_gl.from_u64 = counting_from_u64
-        try:
+        with fixed_uploads(const_cols.buffer) as uploads:
             res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
                                setup["constTree"], (cm_cols.buffer, publics),
                                device=prove_device)
             torch.cuda.synchronize()
-        finally:
-            torch_gl.from_u64 = real_from_u64
         return res, time.perf_counter() - t, uploads[0]
 
     for c in counters:
@@ -1093,6 +1182,7 @@ def phase_prove(device, setup_name, counters):
     res_warm, warm, uploads_warm = run()
     peak = max(res_warm["peakBytes"].values())  # every allocation happens inside a phase
     same = canon(res["proof"]) == canon(res_warm["proof"])
+    library = {"proof": res["proof"], "publics": res["publics"]}
     t0 = time.perf_counter()
     ok = verifier.verify(res_warm["proof"], res_warm["publics"], setup["constRoot"],
                          setup["starkInfo"], setup["verifierInfo"])
@@ -1128,6 +1218,207 @@ def phase_prove(device, setup_name, counters):
     if miscounted:
         raise AssertionError(f"launches (counted, expected) on the {setup_name} prove: "
                              f"{miscounted}")
+    return launches, library
+
+
+CLI_DIR = "pil2_stark_tpu_torch/_build/cli"  # under the checkout, gitignored; removed after
+
+
+def _cli_runs(jobs, cwd):
+    """python -m pil2_stark_tpu_torch <args> for each {name: args} of jobs,
+    each in a fresh process, all at once: {name: (exit code, seconds, last
+    line of its output)}.  Every process is ended before this returns."""
+    started = {}
+    try:
+        for name, args in jobs.items():
+            started[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "pil2_stark_tpu_torch", *args], cwd=cwd,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        out = {}
+        for name, (t0, proc) in started.items():
+            text, _ = proc.communicate(timeout=300)
+            lines = text.strip().splitlines()
+            out[name] = (proc.returncode, time.perf_counter() - t0, lines[-1] if lines else "")
+        return out
+    finally:
+        for _, proc in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _verify_args(d, proof=None, publics=None):
+    """`verify` of the files `prove` wrote to d."""
+    return ["verify", "--proof", proof or f"{d}/proof.json",
+            "--publics", publics or f"{d}/publics.json", "--verkey", f"{d}/verkey.json",
+            "--starkinfo", f"{d}/starkinfo.json", "--verifierinfo", f"{d}/verifierinfo.json"]
+
+
+def phase_cli(device, counters, library):
+    """The port's CLI on the VM 2^20 / ext 2^23, with prove_vm's inputs:
+    `prove` from files in this process (every kernel of the path launched,
+    T1 three times and T2 once; the fixed columns uploaded once, by the
+    setup, and never by the prove; proof.json equal to prove_vm's library
+    proof), `verify` in a fresh process (exit 0, and 1 with one evaluation
+    of the proof changed: the VM has no publics), `buildconsttree` from a
+    PSTC container of the fixed columns (its verkey the prove's; read_tree's
+    root that root; four random rows equal to the card's LDE),
+    `genstarkinfo` from the VM's PIL source (equal to the committed
+    starkInfo); then, in fresh processes on the default device, `prove
+    --model fibonacci --nbits 6` and `verify` (exit 0, and 1 with one
+    public changed)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pil2_stark_tpu_torch import __main__ as cli
+    from pil2_stark_tpu_torch.compiler import pil1_parser
+    from pil2_stark_tpu_torch.field import torch_gl
+    from pil2_stark_tpu_torch.hash import merkle
+    from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
+    from pil2_stark_tpu_torch.ops import ntt
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
+    from pil2_stark_tpu_torch.utils import serialization
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, CLI_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    free_before = shutil.disk_usage(d).free
+    emit({"phase": "cli", "free_disk_bytes": free_before})
+    secs, checks, lines = {}, {}, {}
+    try:
+        data = stark_setup.read_setup(VM_SETUP)
+        pil = pil1_parser.compile_pil_source(poseidon_vm.pil_source(VM_N_BITS))
+        pil["name"] = "PoseidonVM"
+        const_cols, cm_cols, publics = machine_columns(dict(data, references=pil["references"]))
+        f = {k: os.path.join(d, v) for k, v in (
+            ("pil", "pil.json"), ("ss", "ss.json"), ("const", "const.npy"),
+            ("commit", "commit.npy"), ("publics", "publics.json"), ("out", "out"),
+            ("pstc", "consts_in.bin"), ("tree", "tree"), ("source", "PoseidonVM.pil"),
+            ("si", "starkinfo.json"), ("library", "library_proof.json"),
+            ("bad_proof", "bad_proof.json"), ("bad_publics", "bad_publics.json"),
+            ("fib", "fib"))}
+        serialization.dump_json(pil, f["pil"])
+        serialization.dump_json(gadgets.stark_struct(VM_N_BITS, VM_BITS, n_queries=32), f["ss"])
+        np.save(f["const"], const_cols.buffer)
+        np.save(f["commit"], cm_cols.buffer)
+        serialization.dump_json([str(int(x)) for x in publics], f["publics"])
+
+        # prove, in this process, its launches and uploads counted
+        real_prove, prove_uploads, prove_s = prover.prove, [], []
+
+        def counted_prove(*args, **kwargs):
+            with fixed_uploads(const_cols.buffer) as n:
+                t = time.perf_counter()
+                res = real_prove(*args, **kwargs)
+                torch.cuda.synchronize()
+                prove_s.append(time.perf_counter() - t)
+            prove_uploads.append(n[0])
+            return res
+
+        for c in counters:
+            c.launches = 0
+        prover.prove = counted_prove
+        try:
+            with fixed_uploads(const_cols.buffer) as all_uploads:
+                t0 = time.perf_counter()
+                cli.main(["prove", "--pil-json", f["pil"], "--const", f["const"],
+                          "--commit", f["commit"], "--publics", f["publics"],
+                          "--starkstruct", f["ss"], "--tmp", f["out"]])
+                secs["prove"] = time.perf_counter() - t0
+        finally:
+            prover.prove = real_prove
+        launches = {c.__name__: c.launches for c in counters}
+        serialization.dump_proof(library["proof"], f["library"])
+        with open(os.path.join(f["out"], "proof.json"), "rb") as a, open(f["library"], "rb") as b:
+            checks["proof_equals_library"] = a.read() == b.read()
+        uploads = [all_uploads[0] - sum(prove_uploads)] + prove_uploads
+        checks["fixed_uploads_once_by_the_setup"] = uploads == [1, 0]
+
+        out = f["out"]
+        # buildconsttree from a PSTC container of the fixed columns
+        serialization.write_const_file(f["pstc"], const_cols.buffer)
+        os.makedirs(f["tree"])
+        tree_files = {k: os.path.join(f["tree"], k) for k in
+                      ("consttree.bin", "verkey.json", "consts.bin")}
+        t0 = time.perf_counter()
+        cli.main(["buildconsttree", "--const-file", f["pstc"], "--starkstruct", f["ss"],
+                  "--consttree", tree_files["consttree.bin"],
+                  "--verkey", tree_files["verkey.json"],
+                  "--constsfile", tree_files["consts.bin"]])
+        secs["buildconsttree"] = time.perf_counter() - t0
+        written = {k: os.path.getsize(v) for k, v in tree_files.items()}
+        with open(tree_files["verkey.json"], "rb") as a, \
+                open(f"{out}/verkey.json", "rb") as b:
+            checks["verkey_equals_prove"] = a.read() == b.read()
+        t0 = time.perf_counter()
+        tree = merkle.read_tree(tree_files["consttree.bin"])
+        secs["read_tree"] = time.perf_counter() - t0
+        prove_root = serialization.load_verkey(f"{out}/verkey.json")
+        checks["read_tree_root_equals_prove"] = [int(x) for x in tree.root] == prove_root
+        rows = np.random.default_rng(VM_SEED).integers(0, 1 << VM_BITS, size=4)
+        card_ext = ntt.lde_planar(torch_gl.from_u64(np.ascontiguousarray(const_cols.buffer.T),
+                                                    device), VM_N_BITS, VM_BITS)
+        card_rows = torch_gl.to_u64(card_ext[:, torch.as_tensor(rows, device=device)].T)
+        consts_ext = np.memmap(tree_files["consts.bin"], dtype="<u8", mode="r",
+                               offset=written["consts.bin"] - card_ext.numel() * 8,
+                               shape=(1 << VM_BITS, card_ext.shape[0]))
+        checks["rows_equal_card_lde"] = bool(np.array_equal(tree.elements[rows], card_rows)
+                                             and np.array_equal(consts_ext[rows], card_rows))
+        del tree, card_ext, consts_ext
+
+        # genstarkinfo from the VM's PIL source
+        with open(f["source"], "w") as src:
+            src.write(poseidon_vm.pil_source(VM_N_BITS))
+        t0 = time.perf_counter()
+        cli.main(["genstarkinfo", "--pil", f["source"], "--starkstruct", f["ss"],
+                  "--starkinfo", f["si"], "--expressionsinfo", os.path.join(d, "ei.json"),
+                  "--verifierinfo", os.path.join(d, "vi.json")])
+        secs["genstarkinfo"] = time.perf_counter() - t0
+        checks["genstarkinfo_equals_committed"] = (serialization.load_json(f["si"])
+                                                   == data["starkInfo"])
+
+        # fresh processes, run side by side (their seconds overlap): the VM's
+        # verify, accepted and refused with one evaluation changed (the VM
+        # has no publics to change), and the module's own entry point on the
+        # default device, fibonacci 2^6, then its verify, accepted and
+        # refused with one public changed
+        bad = serialization.load_json(f"{out}/proof.json")
+        bad["evals"][0][0] = str((int(bad["evals"][0][0]) + 1) % P)
+        serialization.dump_json(bad, f["bad_proof"])
+        fib = f["fib"]
+        runs = _cli_runs({
+            "verify": _verify_args(out),
+            "verify_changed_eval": _verify_args(out, proof=f["bad_proof"]),
+            "fresh_prove_fibonacci_6": ["prove", "--model", "fibonacci", "--nbits", "6",
+                                        "--tmp", fib]}, root)
+        if runs["fresh_prove_fibonacci_6"][0] == 0:
+            pubs = serialization.load_json(f"{fib}/publics.json")
+            serialization.dump_json([str((int(pubs[0]) + 1) % P)] + pubs[1:], f["bad_publics"])
+            runs.update(_cli_runs({
+                "fresh_verify_fibonacci_6": _verify_args(fib),
+                "fresh_verify_changed_public": _verify_args(fib, publics=f["bad_publics"])},
+                root))
+        for name, (code, sec, line) in runs.items():
+            secs[name], lines[name] = sec, line
+            want = 1 if "changed" in name else 0
+            checks[f"{name}_exits_{want}"] = code == want
+        checks["fresh_verify_fibonacci_6_ran"] = "fresh_verify_fibonacci_6" in runs
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "cli", "seconds": time.perf_counter() - t_phase, "subcommand_s": secs,
+          "prove_call_s": prove_s, "bytes_written": written, "launches": launches,
+          "fixed_uploads_setup_prove": uploads, "checks": checks, "last_lines": lines})
+    failed = [k for k, v in checks.items() if not v]
+    zero = [k for k, v in launches.items() if v == 0]
+    miscounted = {k: launches[k] for k, v in PROVE_LAUNCHES.items() if launches.get(k) != v}
+    if failed or zero or miscounted:
+        raise AssertionError(f"cli: checks failed {failed}, kernels never launched {zero}, "
+                             f"launches off {miscounted}")
     return launches
 
 
@@ -1240,8 +1531,10 @@ def main():
     tool_rows, launches = phase_tools(device, rows)
     phase_small(device)
     phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
-    launches.update({name: phase_prove(device, name, counters)
-                     for name in (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP)})
+    library = {}
+    for name in (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP):
+        launches[name], library[name] = phase_prove(device, name, counters)
+    launches["cli"] = phase_cli(device, counters, library[VM_SETUP])
     phase_profile(device, (VM_SETUP, LARGE_SETUP))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

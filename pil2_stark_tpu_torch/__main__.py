@@ -1,0 +1,390 @@
+"""CLI of the PyTorch/CUDA port: the core subcommands of
+pil2_stark_tpu/__main__.py, themselves the counterparts of pil2-stark-js's
+src/main_*.js entry points:
+
+  genstarkinfo     PIL + starkstruct -> starkinfo/expressionsinfo/verifierinfo
+  preparepil       PIL + starkstruct -> prepared-pil summary (split pipeline)
+  genpilcode       PIL + starkstruct -> TAC code artifacts only
+  calculateimpols  report the im-pols selection (heuristic vs optimal)
+  buildconsttree   const pols -> const tree file + verification key
+  prove            setup artifacts + witness -> proof.json / zkin.json / publics
+  verify           proof + verkey -> accept (exit 0) / reject (exit 1)
+  pilverify        debug constraint check of a witness (no commitments)
+
+Every file equals the JAX package's for the same arguments.  ``--device``
+takes the place of the JAX CLI's ``--backend``: by default the card
+(``prove``, ``buildconsttree`` and ``pilverify`` raise when there is none),
+``--device cpu`` runs the kernels' plain versions.  ``buildconsttree``
+extends and Merkelizes on the device, as stark.setup.load_setup does.
+The recursion subcommands (buildchelpers, pil2circom, compressor, final,
+fflonk) are not ported yet.
+
+Artifact containers are the JAX package's own formats (.npy for u64
+buffers, JSON with stringified big ints, the PSTC consts container).
+
+Example (the bundled fibonacci model, on the card):
+
+  python -m pil2_stark_tpu_torch prove --model fibonacci --tmp /tmp/fib
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def _compile_pil(args):
+    from .compiler import pil1_parser
+
+    if getattr(args, "pilout", None):
+        from .compiler import pil2_frontend
+
+        pilout = pil2_frontend.load_pilout(args.pilout)
+        pil = pil2_frontend.select_air(
+            pilout, int(args.subproof_id or 0), int(args.air_id or 0)
+        )
+        return pil, True
+    if args.model:
+        from .models import fibonacci
+
+        assert args.model == "fibonacci", "bundled models: fibonacci"
+        pil = pil1_parser.compile_pil_source(fibonacci.pil_source(args.nbits or 6))
+        pil["name"] = "Fibonacci"
+    else:
+        pil = pil1_parser.compile_pil(args.pil)
+        pil["name"] = os.path.splitext(os.path.basename(args.pil))[0]
+    return pil, False
+
+
+def _stark_struct(args, default=None):
+    if args.starkstruct:
+        with open(args.starkstruct) as f:
+            return json.load(f)
+    if default is not None:
+        return copy.deepcopy(default)
+    raise SystemExit("--starkstruct required")
+
+
+def _fibonacci(n_bits, inputs=None):
+    """(pil, fixed columns, witness columns, publics) of the bundled model."""
+    from .compiler import pil1_parser
+    from .models import fibonacci
+
+    pil = pil1_parser.compile_pil_source(fibonacci.pil_source(n_bits))
+    pil["name"] = "Fibonacci"
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 1 << n_bits,
+                                                   list(inputs or [1, 2]))
+    return pil, const_cols.buffer, cm_cols.buffer, publics
+
+
+def _load_machine(args):
+    """(pil, fixed columns, witness columns, publics) of the file-based
+    path: any machine given as pil JSON and .npy buffers."""
+    from .utils import serialization
+
+    pil = serialization.load_json(args.pil_json)
+    publics = [int(x) for x in serialization.load_json(args.publics)] if args.publics else []
+    return pil, np.load(args.const), np.load(args.commit), publics
+
+
+def cmd_genstarkinfo(args):
+    from .compiler.pilinfo import pil_info
+    from .utils import serialization
+
+    pil, pil2 = _compile_pil(args)
+    ss = _stark_struct(args)
+    out = pil_info(pil, stark=True, stark_struct=ss, pil2=pil2)
+    serialization.dump_json(out["pilInfo"], args.starkinfo)
+    serialization.dump_json(out["expressionsInfo"], args.expressionsinfo)
+    serialization.dump_json(out["verifierInfo"], args.verifierinfo)
+    print(f"wrote {args.starkinfo}, {args.expressionsinfo}, {args.verifierinfo}")
+
+
+def cmd_prove(args):
+    from .models import fibonacci
+    from .stark import prover, setup
+    from .utils import proof2zkin, serialization
+
+    tmp = args.tmp
+    os.makedirs(tmp, exist_ok=True)
+
+    if args.model == "fibonacci":
+        n_bits = args.nbits or 6
+        pil, const_buffer, cm_buffer, publics = _fibonacci(n_bits, args.inputs)
+        ss = _stark_struct(args, fibonacci.STARK_STRUCT if n_bits == 6 else None)
+    elif args.pil_json and args.const and args.commit:
+        # file-based path: prove any machine (main_prover.js)
+        pil, const_buffer, cm_buffer, publics = _load_machine(args)
+        ss = _stark_struct(args)
+    else:
+        raise SystemExit("pass --model, or --pil-json/--const/--commit")
+
+    s = setup.stark_setup(const_buffer, pil, ss, device=args.device)
+    res = prover.prove(
+        s["starkInfo"], s["expressionsInfo"], const_buffer, s["constTree"],
+        (cm_buffer, publics), device=args.device, profile_dir=args.profile_dir,
+    )
+
+    serialization.dump_proof(res["proof"], os.path.join(tmp, "proof.json"))
+    serialization.dump_json(
+        [str(int(p)) for p in res["publics"]], os.path.join(tmp, "publics.json")
+    )
+    zkin = proof2zkin.proof2zkin(res["proof"], s["starkInfo"])
+    zkin["publics"] = [int(p) for p in res["publics"]]
+    serialization.dump_json(
+        json.loads(json.dumps(zkin, default=str)), os.path.join(tmp, "zkin.json")
+    )
+    serialization.dump_verkey(s["constRoot"], os.path.join(tmp, "verkey.json"))
+    serialization.dump_json(s["starkInfo"], os.path.join(tmp, "starkinfo.json"))
+    serialization.dump_json(s["verifierInfo"], os.path.join(tmp, "verifierinfo.json"))
+    print(f"proof written to {tmp}/proof.json; verified inputs: {publics}")
+
+
+def cmd_buildconsttree(args):
+    """main_buildconsttree.js: const pols -> extended consts + tree file +
+    verification key.  The LDE and the GL tree are built on the device
+    (stark.setup.const_tree), then copied to the host once
+    (stark.device.to_host_tree) and written from there."""
+    from .field import gl64
+    from .hash import merkle
+    from .hash.mh import MerkleHashGL
+    from .stark import context, setup
+    from .stark import device as dev
+    from .utils import binfile, serialization
+
+    ss = _stark_struct(args)
+    if args.model == "fibonacci":
+        _, const_buffer, _, _ = _fibonacci(args.nbits or ss["nBits"])
+    elif args.const_file:
+        _, const_buffer, _ = serialization.read_const_file(args.const_file, n_pols=args.npols)
+    else:
+        raise SystemExit("--model or --const-file required")
+
+    device = context.resolve_device(args.device)
+    tree = setup.const_tree(const_buffer, ss["nBits"], ss["nBitsExt"],
+                            MerkleHashGL(ss.get("splitLinearHash", False)), device)
+    host = dev.to_host_tree(tree)
+    del tree
+    merkle.write_tree(host, args.consttree)
+    serialization.dump_verkey(host.root, args.verkey)
+    serialization.write_const_file(args.constsfile, const_buffer, host.elements)
+    if args.ref_consts:
+        binfile.write_consts_binfile(
+            args.ref_consts, host.elements, host,
+            gl64.powers(gl64.w(ss["nBits"]), 1 << ss["nBits"]),
+            gl64.powers(gl64.w(ss["nBitsExt"]), 1 << ss["nBitsExt"], start=gl64.SHIFT_INT),
+        )
+    if args.pilcom_const:
+        binfile.write_pilcom_const(args.pilcom_const, const_buffer)
+    print(f"wrote {args.consttree}, {args.verkey}, {args.constsfile}")
+
+
+def cmd_verify(args):
+    from .stark import verifier
+    from .utils import serialization
+
+    proof = serialization.load_proof(args.proof)
+    publics = [int(x) for x in serialization.load_json(args.publics)]
+    const_root = serialization.load_verkey(args.verkey)
+    stark_info = serialization.load_json(args.starkinfo)
+    verifier_info = serialization.load_json(args.verifierinfo)
+    ok = verifier.verify(proof, publics, const_root, stark_info, verifier_info)
+    print("VALID proof" if ok else "INVALID proof")
+    sys.exit(0 if ok else 1)
+
+
+def cmd_pilverify(args):
+    """main_pilverifier.js: the debug prove's constraint check."""
+    from .compiler.pilinfo import pil_info
+    from .stark import prover
+
+    if args.pil_json and args.const and args.commit:
+        pil, const_buffer, cm_buffer, publics = _load_machine(args)
+    elif args.model == "fibonacci":
+        pil, const_buffer, cm_buffer, publics = _fibonacci(args.nbits or 6, args.inputs)
+    else:
+        raise SystemExit("--model fibonacci supported")
+    info = pil_info(pil, True, {}, {"debug": True})
+    errors = prover.prove(
+        info["pilInfo"], info["expressionsInfo"], const_buffer, None,
+        (cm_buffer, publics), debug=True, device=args.device,
+    )
+    if errors:
+        for e in errors:
+            print(e)
+        sys.exit(1)
+    print("PIL OK!")
+
+
+# ---------------------------------------------------------------------------
+# split setup pipeline (main_preparepil.js / main_genpilcode.js /
+# main_calculateimpols.js)
+
+
+def cmd_preparepil(args):
+    """main_preparepil.js: run only the preparation stage and dump the
+    prepared-pil summary (polynomial maps, stage counts, constraints)."""
+    from .compiler.prepare import prepare_pil
+    from .utils import serialization
+
+    pil, pil2 = _compile_pil(args)
+    ss = _stark_struct(args)
+    info = prepare_pil(pil, ss, stark=True, pil2=pil2)
+    res = info["res"]
+    summary = {
+        "name": res["name"],
+        "nStages": res["nStages"],
+        "nConstants": res["nConstants"],
+        "nPublics": res["nPublics"],
+        "nCommitments": res["nCommitments"],
+        "qDim": res["qDim"],
+        "cExpId": res["cExpId"],
+        "boundaries": res["boundaries"],
+        "openingPoints": res["openingPoints"],
+        "nExpressions": len(info["expressions"]),
+        "nConstraints": len(info["constraints"]),
+        "starkStruct": res["starkStruct"],
+    }
+    serialization.dump_json(json.loads(json.dumps(summary, default=str)), args.out)
+    print(f"wrote {args.out}")
+
+
+def cmd_genpilcode(args):
+    """main_genpilcode.js: emit only the generated TAC code artifacts (the
+    earlier stages of the split pipeline are recomputed: they are
+    deterministic and fast)."""
+    from .compiler.pilinfo import pil_info
+    from .utils import serialization
+
+    pil, pil2 = _compile_pil(args)
+    ss = _stark_struct(args)
+    out = pil_info(pil, stark=True, stark_struct=ss, pil2=pil2)
+    serialization.dump_json(out["expressionsInfo"], args.expressionsinfo)
+    serialization.dump_json(out["verifierInfo"], args.verifierinfo)
+    print(f"wrote {args.expressionsinfo}, {args.verifierinfo}")
+
+
+def cmd_calculateimpols(args):
+    """main_calculateimpols.js + calculateImPols.py: report the
+    intermediate-polynomial selection, heuristic min-cut against the exact
+    branch-and-bound optimizer (compiler/impols_opt.py)."""
+    from .compiler.pilinfo import pil_info
+    from .utils import serialization
+
+    ss = _stark_struct(args)
+    report = {}
+    for label, opts in (("heuristic", {}), ("optimal", {"optImPols": True})):
+        pil, pil2 = _compile_pil(args)
+        out = pil_info(pil, stark=True, stark_struct=ss, pil2=pil2, options=opts)
+        im = [p for p in out["pilInfo"]["cmPolsMap"] if p and p.get("imPol")]
+        report[label] = {
+            "nImPols": len(im),
+            "addedCols": sum(p["dim"] for p in im),
+            "qDeg": out["pilInfo"]["qDeg"],
+            "imPols": [p["name"] for p in im],
+        }
+    serialization.dump_json(report, args.out)
+    h, o = report["heuristic"], report["optimal"]
+    print(f"heuristic: {h['nImPols']} im pols / {h['addedCols']} cols "
+          f"(qDeg {h['qDeg']}); optimal: {o['nImPols']} / {o['addedCols']} "
+          f"(qDeg {o['qDeg']}); wrote {args.out}")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="pil2_stark_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--pil")
+        sp.add_argument("--pilout", help=".pilout protobuf (PIL2)")
+        sp.add_argument("--subproof-id", dest="subproof_id")
+        sp.add_argument("--air-id", dest="air_id")
+        sp.add_argument("--model")
+        sp.add_argument("--nbits", type=int)
+        sp.add_argument("--starkstruct")
+        sp.add_argument("--inputs", type=lambda s: [int(x) for x in s.split(",")])
+
+    def device(sp):
+        sp.add_argument("--device", choices=["cuda", "cpu"],
+                        help="where the kernels run (default: the card; no fallback)")
+
+    sp = sub.add_parser("genstarkinfo")
+    common(sp)
+    sp.add_argument("--starkinfo", default="starkinfo.json")
+    sp.add_argument("--expressionsinfo", default="expressionsinfo.json")
+    sp.add_argument("--verifierinfo", default="verifierinfo.json")
+    sp.set_defaults(fn=cmd_genstarkinfo)
+
+    sp = sub.add_parser("preparepil")
+    common(sp)
+    sp.add_argument("-o", "--out", default="preparedpil.json")
+    sp.set_defaults(fn=cmd_preparepil)
+
+    sp = sub.add_parser("genpilcode")
+    common(sp)
+    sp.add_argument("--expressionsinfo", default="expressionsinfo.json")
+    sp.add_argument("--verifierinfo", default="verifierinfo.json")
+    sp.set_defaults(fn=cmd_genpilcode)
+
+    sp = sub.add_parser("calculateimpols")
+    common(sp)
+    sp.add_argument("-o", "--out", default="impols.json")
+    sp.set_defaults(fn=cmd_calculateimpols)
+
+    sp = sub.add_parser("prove")
+    common(sp)
+    device(sp)
+    sp.add_argument("--tmp", default="out")
+    sp.add_argument("--pil-json", dest="pil_json")
+    sp.add_argument("--const")
+    sp.add_argument("--commit")
+    sp.add_argument("--publics")
+    sp.add_argument("--profile-dir", dest="profile_dir",
+                    help="write a torch.profiler Chrome trace of the prove "
+                         "to this directory")
+    sp.set_defaults(fn=cmd_prove)
+
+    sp = sub.add_parser("buildconsttree")
+    common(sp)
+    device(sp)
+    sp.add_argument("--const-file", dest="const_file")
+    sp.add_argument("--npols", type=int,
+                    help="column count when --const-file is a headerless "
+                         "pilcom .const file")
+    sp.add_argument("--consttree", default="consttree.bin")
+    sp.add_argument("--verkey", default="verkey.json")
+    sp.add_argument("--constsfile", default="consts.bin")
+    sp.add_argument("--ref-consts", dest="ref_consts",
+                    help="also write the reference's 'cnts' binfile "
+                         "(stark_constsPolsFile.js layout)")
+    sp.add_argument("--pilcom-const", dest="pilcom_const",
+                    help="also write a pilcom-layout .const file")
+    sp.set_defaults(fn=cmd_buildconsttree)
+
+    sp = sub.add_parser("verify")
+    sp.add_argument("--proof", required=True)
+    sp.add_argument("--publics", required=True)
+    sp.add_argument("--verkey", required=True)
+    sp.add_argument("--starkinfo", required=True)
+    sp.add_argument("--verifierinfo", required=True)
+    sp.set_defaults(fn=cmd_verify)
+
+    sp = sub.add_parser("pilverify")
+    common(sp)
+    device(sp)
+    sp.add_argument("--pil-json", dest="pil_json")
+    sp.add_argument("--const")
+    sp.add_argument("--commit")
+    sp.add_argument("--publics")
+    sp.set_defaults(fn=cmd_pilverify)
+
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,12 +8,16 @@ Reproduces the reference's tree shape bit-exactly
   per the `_getNNodes` rule nextN = (floor((n-1)/8)+1)*4 (merklehash_p.js:28-42);
 - inner nodes: poseidon(left4 || right4, zero capacity)[:4];
 - proofs: per-level sibling digest, sibling index idx^1 within the padded
-  level (merklehash_p.js:142-168).
+  level (merklehash_p.js:142-168);
+- files: header (width, height) u64 LE, then the elements row-major, then
+  the flat node buffer (padded levels concatenated, root last)
+  (merklehash_p.js:228-278).
 
 Host copy of pil2_stark_tpu/hash/merkle.py's numpy backend.  The prover
 builds its trees on the device (stark/device.py); this module serves the
-verifier (``verify_group_proof`` hashes one path on python ints) and small
-host trees.
+verifier (``verify_group_proof`` hashes one path on python ints), small
+host trees and the tree files (stark/device.py::to_host_tree turns a device
+tree into a MerkleTree).
 """
 from __future__ import annotations
 
@@ -34,6 +38,29 @@ class MerkleTree:
     @property
     def root(self) -> np.ndarray:
         return self.levels[-1][0]
+
+    def nodes_flat(self) -> np.ndarray:
+        return np.concatenate([lvl.reshape(-1) for lvl in self.levels])
+
+
+def level_sizes(height: int) -> list:
+    """Digests per stored level of a tree of `height` leaves: each level
+    below the root padded to an even count, the root alone."""
+    sizes = []
+    n = height
+    while n > 1:
+        sizes.append(2 * ((n + 1) // 2))
+        n = (n + 1) // 2
+    return sizes + [1]
+
+
+def levels_from_nodes(nodes: np.ndarray, height: int) -> list:
+    """Split a flat node buffer into its (n, 4) levels."""
+    levels, pos = [], 0
+    for n in level_sizes(height):
+        levels.append(nodes[pos * 4:(pos + n) * 4].reshape(n, 4).astype(np.uint64))
+        pos += n
+    return levels
 
 
 def _pad_even(digests: np.ndarray) -> np.ndarray:
@@ -109,3 +136,26 @@ def calculate_root_from_proof(proof, idx: int, values, split_linear_hash: bool =
 def verify_group_proof(root, proof, idx: int, values, split_linear_hash: bool = False) -> bool:
     got = calculate_root_from_proof(proof, idx, values, split_linear_hash)
     return bool(np.array_equal(np.asarray(root, dtype=np.uint64), got))
+
+
+# ---------------------------------------------------------------------------
+# file round trip (merklehash_p.js:228-278 layout)
+
+
+def write_tree(tree: MerkleTree, path: str) -> None:
+    """The bytes of pil2_stark_tpu/hash/merkle.py::write_tree, written from
+    the tree's arrays without copying them."""
+    with open(path, "wb") as f:
+        np.array([tree.width, tree.height], dtype="<u8").tofile(f)
+        np.ascontiguousarray(tree.elements, dtype="<u8").tofile(f)
+        for lvl in tree.levels:
+            np.ascontiguousarray(lvl, dtype="<u8").tofile(f)
+
+
+def read_tree(path: str) -> MerkleTree:
+    with open(path, "rb") as f:
+        width, height = (int(x) for x in np.fromfile(f, dtype="<u8", count=2))
+        elements = np.fromfile(f, dtype="<u8", count=width * height).reshape(height, width)
+        nodes = np.fromfile(f, dtype="<u8")
+    return MerkleTree(width=width, height=height, elements=elements.astype(np.uint64),
+                      levels=levels_from_nodes(nodes, height))

@@ -34,8 +34,6 @@ class ProverCtx:
         self.trees = {}
 
         ss = pil_info["starkStruct"]
-        if ss.get("verificationHashType", "GL") != "GL":
-            raise NotImplementedError("the port proves with GL hash trees only")
         self.n_bits = ss["nBits"]
         self.N = 1 << self.n_bits
         if not debug:

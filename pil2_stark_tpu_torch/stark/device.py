@@ -5,7 +5,9 @@ Counterpart of pil2_stark_tpu/stark/device.py in its single-device planar
 form (``domain_consts`` :206, ``make_evals_executor`` :261,
 ``compute_xdiv`` :370, on kernel T2, ``DeviceTree`` :383, ``merkelize``
 :419 with the zero-width uniform trees :405-450,
-``gather_group_proofs_multi`` :512).
+``gather_group_proofs_multi`` :512), and ``to_host_tree``, which turns a
+device tree into the host hash.merkle.MerkleTree that the tree files are
+written from.
 Layouts are planar: a section is (cols, rows), a cubic-extension vector
 (3, N).  Host↔device traffic is limited to witness uploads, roots, the
 evals vector and one query gather per proof.
@@ -21,7 +23,7 @@ import torch
 from ..field import f3, gl64
 from ..field import torch_gl as gl
 from ..field import torch_f3 as f3g
-from ..hash import poseidon_gl, torch_poseidon
+from ..hash import merkle, poseidon_gl, torch_poseidon
 from ..ops import cuda_tac
 from ..ops import ntt as ntt_ops
 
@@ -225,3 +227,18 @@ def gather_group_proofs_multi(trees, idxs_list):
         results.append(out)
         off += span
     return results
+
+
+def to_host_tree(tree: DeviceTree) -> merkle.MerkleTree:
+    """The host MerkleTree of a device tree, byte-equal through
+    merkle.write_tree to the JAX package's tree of the same columns: the
+    planar (width, height) elements become row-major (height, width),
+    transposed on the device, so that the host holds them once; each (4, n)
+    level becomes (n, 4), and a uniform tree's one-digest levels are
+    expanded to their padded sizes."""
+    levels = [gl.to_u64(lvl.T) for lvl in tree.levels]
+    if tree.uniform:
+        levels = [np.repeat(lvl, n, axis=0)
+                  for lvl, n in zip(levels, merkle.level_sizes(tree.height))]
+    return merkle.MerkleTree(width=tree.width, height=tree.height,
+                             elements=gl.to_u64(tree.elements.T), levels=levels)

@@ -7,7 +7,8 @@ Counterpart of pil2_stark_tpu/stark/fri.py (planar device fold
 fold groups the (3, n) polynomial by the next step size, runs the
 per-group iNTT (a small axis-0 transform, kernel B1 on the card), de-scales by
 shiftInv·w^-g powers and evaluates at the challenge by Horner; every
-non-final step re-Merkelizes the transposed groups 3-wide on the device.
+non-final step re-Merkelizes the transposed groups 3-wide through the hash
+backend (hash/mh.py: on the device for GL trees, on the host for BN128).
 """
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ from ..field import torch_gl as gl
 from ..field import torch_f3 as f3g
 from ..hash.mh import MerkleHashGL
 from ..ops import ntt as ntt_ops
-from . import device as dev
 
 
 def _log2(n):
@@ -62,9 +62,8 @@ class FRI:
             group_size = (1 << self.steps[step]["nBits"]) // n_groups
             h = pol2.shape[1] // n_groups
             buff = pol2.reshape(3, h, n_groups).permute(1, 0, 2).reshape(3 * h, n_groups)
-            tree = dev.merkelize(buff.contiguous(), 3 * group_size, n_groups,
-                                 self.mh.split_linear_hash)
-            return {"pol": pol2, "tree": tree, "proof": {"root": tree.root}}
+            tree = self.mh.merkelize(buff.contiguous(), 3 * group_size, n_groups)
+            return {"pol": pol2, "tree": tree, "proof": {"root": self.mh.root(tree)}}
 
         pol2_np = np.ascontiguousarray(gl.to_u64(pol2).T)  # (m, 3)
         proof = [tuple(int(x) for x in pol2_np[i]) for i in range(pol2_np.shape[0])]
@@ -83,7 +82,7 @@ class FRI:
                     fri_queries[i] = fri_queries[i] % (1 << self.steps[step]["nBits"])
                 jobs.append((trees[step], list(fri_queries)))
 
-        res = dev.gather_group_proofs_multi([t for t, _ in jobs], [i for _, i in jobs])
+        res = self.mh.get_group_proofs_multi([t for t, _ in jobs], [i for _, i in jobs])
         per_job = [[[v, p] for v, p in r] for r in res]
 
         n_t = len(trees[0])

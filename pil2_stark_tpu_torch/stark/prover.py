@@ -9,7 +9,8 @@ split, the DEEP evals, xDivXSubXi, the FRI polynomial, the FRI folds and
 one batched query gather.  The transcript and the control flow stay on the
 host.  The LDEs and the Q split run on kernels B2/B3 (ops/cuda_ntt.py) up
 to 2^24 points and on the row route's B1 above, the FRI folds on B1, every
-Merkle tree on kernel B4 (hash/cuda_poseidon.py), the im-pol, Q and FRI
+GL Merkle tree on kernel B4 (hash/cuda_poseidon.py; BN128 trees are built
+on the host through ctx.mh, hash/mh.py), the im-pol, Q and FRI
 programs on T1 (ops/torch_tac.py) and xDivXSubXi on T2 (ops/cuda_tac.py).
 """
 from __future__ import annotations
@@ -36,7 +37,8 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
     peakBytes}; peakBytes holds each phase's peak device memory on CUDA.
 
     inputs = (stage-1 witness columns as an (N, nCm1) u64 array, publics).
-    const_tree is the DeviceTree from stark.setup.load_setup.  device=None
+    const_tree is the tree from stark.setup.load_setup (a DeviceTree, or
+    for verificationHashType BN128 an mh.TreeBN128).  device=None
     means "cuda" and raises when CUDA is unavailable; tests pass "cpu".
 
     debug=True (pil2_stark_tpu/stark/prover.py:101-130): with a debug setup
@@ -302,7 +304,7 @@ def _extend_and_merkelize(stage, ctx):
     else:
         ext = torch.zeros((0, ctx.ext_N), dtype=torch.int64, device=ctx.device)
     ctx.dsections["ext"][f"cm{stage}"] = ext
-    ctx.trees[stage] = dev.merkelize(ext, n_pols, ctx.ext_N, ctx.mh.split_linear_hash)
+    ctx.trees[stage] = ctx.mh.merkelize(ext, n_pols, ctx.ext_N)
     return [ctx.mh.root(ctx.trees[stage])]
 
 
@@ -326,7 +328,7 @@ def _compute_q(ctx):
     ext = ntt_ops.planar_ntt(padded, ctx.n_bits_ext, False)
     ctx.dsections["ext"][f"cm{q_stage}"] = ext
     n_pols_q = pil_info["mapSectionsN"].get(f"cm{q_stage}", 0)
-    ctx.trees[q_stage] = dev.merkelize(ext, n_pols_q, ext_n, ctx.mh.split_linear_hash)
+    ctx.trees[q_stage] = ctx.mh.merkelize(ext, n_pols_q, ext_n)
     return [ctx.mh.root(ctx.trees[q_stage])]
 
 

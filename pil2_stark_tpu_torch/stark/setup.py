@@ -10,7 +10,10 @@ under ``setups/``, ``read_setup``) the way the reference's prover takes
 ``starkinfo.json``.  On a CUDA device it builds kernel T1 for the setup's
 TAC programs (ops/torch_tac.build_programs), so that no prove waits on
 nvcc, and the const tree keeps the base-domain fixed columns on the device
-(``DeviceTree.base``), so that no prove uploads them again.
+(``DeviceTree.base``), so that no prove uploads them again.  The tree's
+hash follows ``verificationHashType`` (hash/mh.py): GL trees are built on
+the device, BN128 trees on the host from the extended columns the device
+computed, and a BN128 tree keeps ``base`` too.
 """
 from __future__ import annotations
 
@@ -21,9 +24,9 @@ import numpy as np
 
 from ..compiler.pilinfo import pil_info as compile_pil_info
 from ..field import torch_gl as gl
+from ..hash.mh import build_mh
 from ..ops import ntt as ntt_ops
 from ..ops import torch_tac
-from . import device as dev
 from .context import resolve_device
 
 SETUPS_DIR = Path(__file__).resolve().parent.parent / "setups"
@@ -39,33 +42,43 @@ def read_setup(name: str) -> dict:
 def load_setup(stark_info: dict, expressions_info: dict, verifier_info: dict,
                const_pols: np.ndarray, device=None) -> dict:
     """const_pols: (N, nConstants) u64.  Returns {starkInfo, expressionsInfo,
-    verifierInfo, fixedPols, constTree, constRoot}; the const tree is a
-    DeviceTree on `device` (None means "cuda") that keeps the (nConstants,
-    N) base-domain columns as ``base``.  On CUDA, T1 is built for the
-    im-pol, Q and FRI programs first."""
+    verifierInfo, fixedPols, constTree, constRoot}; the const tree (a
+    DeviceTree, or an mh.TreeBN128 whose root is an int) holds its
+    extended columns on `device` (None means "cuda") and keeps the
+    (nConstants, N) base-domain columns as ``base``.  On CUDA, T1 is built
+    for the im-pol, Q and FRI programs first."""
     device = resolve_device(device)
     if device.type == "cuda":
         torch_tac.build_programs(stark_info, expressions_info)
     ss = stark_info["starkStruct"]
-    n_bits, n_bits_ext = ss["nBits"], ss["nBitsExt"]
     n_constants = len(stark_info["constPolsMap"])
-    const_pols = np.asarray(const_pols, dtype=np.uint64).reshape(1 << n_bits, n_constants)
-    const_n = gl.from_u64(np.ascontiguousarray(const_pols.T), device)
-    if n_constants > 0:
-        const_ext = ntt_ops.lde_planar(const_n, n_bits, n_bits_ext)
-    else:
-        const_ext = const_n.new_zeros((0, 1 << n_bits_ext))
-    tree = dev.merkelize(const_ext, n_constants, 1 << n_bits_ext,
-                         ss.get("splitLinearHash", False))
-    tree.base = const_n
+    const_pols = np.asarray(const_pols, dtype=np.uint64).reshape(1 << ss["nBits"], n_constants)
+    mh = build_mh(ss)
+    tree = const_tree(const_pols, ss["nBits"], ss["nBitsExt"], mh, device)
     return {
         "starkInfo": stark_info,
         "expressionsInfo": expressions_info,
         "verifierInfo": verifier_info,
         "fixedPols": const_pols,
         "constTree": tree,
-        "constRoot": tree.root,
+        "constRoot": mh.root(tree),
     }
+
+
+def const_tree(const_pols: np.ndarray, n_bits: int, n_bits_ext: int, mh, device):
+    """The const tree of (N, nConstants) u64 fixed columns: uploaded to
+    `device` (a torch.device) as (nConstants, N), extended there
+    (ops/ntt.lde_planar) and Merkelized by `mh` (hash/mh.py); the tree
+    keeps the base-domain columns as ``base``."""
+    const_n = gl.from_u64(np.ascontiguousarray(np.asarray(const_pols, dtype=np.uint64).T),
+                          device)
+    if const_n.shape[0] > 0:
+        const_ext = ntt_ops.lde_planar(const_n, n_bits, n_bits_ext)
+    else:
+        const_ext = const_n.new_zeros((0, 1 << n_bits_ext))
+    tree = mh.merkelize(const_ext, const_n.shape[0], 1 << n_bits_ext)
+    tree.base = const_n
+    return tree
 
 
 def stark_setup(const_pols, pil: dict, stark_struct: dict, options=None, device=None) -> dict:

@@ -455,3 +455,64 @@ def test_profiler_writes_a_trace(card, tmp_path):
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     assert any("poseidon" in k for k in kernels), sorted(kernels)[:20]
     assert 0.0 <= timing.idle_share(res["trace"]) < 1.0
+
+
+@pytest.mark.parametrize("custom", [False, True])
+def test_bn128_proof_on_card_equals_cpu(card, custom):
+    """BN128 trees on the host, transforms and T1/T2 on the card: the
+    proof equals the CPU's and verifies; the const tree keeps the fixed
+    columns on the card."""
+    import copy
+
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import catalog, prover, setup, verifier
+
+    pil = catalog.machine_pil("fibonacci", 6)
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
+    ss = dict(copy.deepcopy(fibonacci.STARK_STRUCT), verificationHashType="BN128",
+              merkleTreeArity=16, merkleTreeCustom=custom)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        s = setup.stark_setup(const_cols.buffer, copy.deepcopy(pil), copy.deepcopy(ss),
+                              device=dev)
+        assert s["constTree"].base.device == dev
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics), device=dev)
+        out.append((s["constRoot"], _canon(res["proof"]), res["challenges"]))
+    assert out[0] == out[1]
+    assert verifier.verify(res["proof"], res["publics"], s["constRoot"], s["starkInfo"],
+                           s["verifierInfo"])
+
+
+def test_cli_prove_files_on_card_equal_cpu(card, tmp_path):
+    """python -m pil2_stark_tpu_torch prove on the card (the default
+    device) writes the files the same command writes with --device cpu."""
+    from pil2_stark_tpu_torch.__main__ import main
+
+    argv = ["prove", "--model", "fibonacci", "--nbits", "6", "--tmp"]
+    main(argv + [str(tmp_path / "card")])
+    main(argv + [str(tmp_path / "cpu"), "--device", "cpu"])
+    for name in ("proof.json", "publics.json", "zkin.json", "verkey.json", "starkinfo.json",
+                 "verifierinfo.json"):
+        assert (tmp_path / "card" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
+
+
+@pytest.mark.parametrize("width,height", [(0, 1 << 10), (3, 1 << 12), (39, 1 << 12)])
+def test_card_tree_file_equals_host(card, tmp_path, width, height):
+    """write_tree of a tree built on the card (stark.device.to_host_tree)
+    gives the bytes of the host tree of the same columns."""
+    buff = np.random.default_rng(width).integers(0, P, size=(height, width), dtype=np.uint64)
+    cols = torch_gl.from_u64(np.ascontiguousarray(buff.T)).reshape(width, height)
+    a, b = str(tmp_path / "card.bin"), str(tmp_path / "cpu.bin")
+    merkle.write_tree(stark_device.to_host_tree(stark_device.merkelize(cols.to(card), width,
+                                                                       height)), a)
+    merkle.write_tree(stark_device.to_host_tree(stark_device.merkelize(cols, width, height)), b)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    if width:
+        assert open(b, "rb").read() == _host_tree_bytes(buff, width, height, tmp_path)
+
+
+def _host_tree_bytes(buff, width, height, tmp_path):
+    path = str(tmp_path / "host.bin")
+    merkle.write_tree(merkle.merkelize(buff, width, height), path)
+    return open(path, "rb").read()

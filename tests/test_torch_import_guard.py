@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: with `jax` and `pil2_stark_tpu` blocked
-from import, every module of pil2_stark_tpu_torch imports, the port
+from import, every module of pil2_stark_tpu_torch imports (its CLI,
+__main__, and the BN128 hash modules among them), the port
 compiles fibonacci 2^6 to its committed setup, sets it up, proves and
-verifies it on the CPU, and the Poseidon VM's
-builders, debug mode, fibv and the global constraints run.  Its sources
+verifies it on the CPU, the Poseidon VM's
+builders, debug mode, fibv and the global constraints run, and the CLI
+proves and verifies fibonacci 2^6 on the CPU.  Its sources
 name neither package in an import statement, and its entry points refuse
 to fall back to the CPU when no card is there."""
 import pathlib
@@ -54,6 +56,22 @@ assert fibv.execute(101, 1, 2)[2][:3] == [101, 1, 2]
 codes = setup.read_setup("fibv_global")["constraints"]
 assert verifier.verify_global_constraints(codes, [[(1, 2, 3)], [(P - 1, P - 2, P - 3)]]) == []
 assert callable(timing.idle_share)
+# the CLI: prove, then verify, the files through the module's entry point
+import tempfile
+import pil2_stark_tpu_torch.__main__ as cli
+assert "pil2_stark_tpu_torch.__main__" in names
+with tempfile.TemporaryDirectory() as d:
+    cli.main(["prove", "--model", "fibonacci", "--nbits", "6", "--device", "cpu", "--tmp", d])
+    try:
+        cli.main(["verify", "--proof", f"{d}/proof.json", "--publics", f"{d}/publics.json",
+                  "--verkey", f"{d}/verkey.json", "--starkinfo", f"{d}/starkinfo.json",
+                  "--verifierinfo", f"{d}/verifierinfo.json"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+# a BN128 tree and transcript
+from pil2_stark_tpu_torch.hash import merkle_bn128, transcript_bn128
+assert merkle_bn128.merkelize(np.arange(12, dtype=np.uint64), 4, 3).root > 0
+assert len(transcript_bn128.TranscriptBN128().get_field()) == 3
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("IMPORTED", len(names))
 '''
