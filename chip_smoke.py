@@ -87,6 +87,18 @@ Phases, each printing one JSON line:
                    `prove --model fibonacci --nbits 6` and `verify` (exit
                    0; exit 1 with a public changed) in fresh processes on
                    the default device; seconds per subcommand and bytes;
+  8c. mesh       — the multi-device prover (parallel/) on the VM 2^20 /
+                   ext 2^23 with prove_vm's setup and columns: B2 and B3 at
+                   one rank's shapes of a mesh of MESH_RANKS (21 × 2^23
+                   and 12 × 2^20 split four ways) against their plain
+                   versions, timed; prove(mesh=) on MESH_RANKS virtual
+                   ranks of this card, cold and warm (phases, each card's
+                   peak, bytes exchanged, fixed-column uploads, launches);
+                   with two or more cards the same over every card in this
+                   process, and one process per card over NCCL (this
+                   script with --mesh-worker); every proof must equal
+                   prove_vm's byte for byte and verify; a line names the
+                   paths that ran and why the others did not;
   9. profile     — one warm prove each of the VM and fibonacci 2^22 under
                    prove(profile_dir=): the card's idle share over the prove
                    (utils/timing.py::idle_share) and the device's top
@@ -101,7 +113,8 @@ two launches per call above 2^6 points (their two passes).  The cli
 phase's launches are the kernels line's `launches_by_path["cli"]`.
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
-card; imports nothing of JAX.
+card; imports nothing of JAX.  `python3 chip_smoke.py --only mesh` runs the
+build, prove_vm and mesh phases alone (for a machine with four cards).
 """
 from __future__ import annotations
 
@@ -126,9 +139,13 @@ VM_SEED = 3  # its input states, as tests/test_poseidon_vm.py makes them
 # (bits, columns, inverse) of its widest planar transforms in a prove: the
 # Q split's 21-column NTT and the stage-1 12-column iNTT
 VM_PLANAR = ((VM_BITS, 21, False), (VM_N_BITS, 12, True))
+# the mesh phase's virtual ranks on one card: they divide both factors of the
+# VM's transforms (2^8 x 2^12 at 2^20 points, 2^11 x 2^12 at 2^23)
+MESH_RANKS = 4
 SMALL_SETUPS = ("all_8", "boundaries_6", "fibonacci_6_hash", "poseidon_vm_6")
 FIBV_AIRS = ("fibv_module", "fibv_fibonacci")
 PROFILE_DIR = "pil2_stark_tpu_torch/_build/profile"  # under the checkout, gitignored
+MESH_DIR = "pil2_stark_tpu_torch/_build/mesh"  # the NCCL workers' output, gitignored
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
 # integer multiply-add rate is half the FP32 FMA rate (67e12 FLOP/s / 2
@@ -493,44 +510,58 @@ def planar_passes(bits, inverse) -> dict:
     return {"B2": b2, "B3": radix_passes(bits - bits1, inverse)}
 
 
-def _ntt_rows(device, bits, n_cols, inverse, path):
+def _ntt_rows(device, bits, n_cols, inverse, path, ranks=1):
     """B2 (level_planar) and B3 (base_grid) at one planar transform of
-    n_cols × 2^bits points, as ops/ntt.py::planar_ntt splits it."""
+    n_cols × 2^bits points, as ops/ntt.py::planar_ntt splits it; with
+    ranks = d > 1 at the local shapes of one rank of a mesh of d
+    (parallel/ntt_sharded.py: B2 over its N2/d columns of the level
+    twiddles, B3 over its N1/d columns), the last rank's twiddles."""
     import torch
 
     from pil2_stark_tpu_torch.ops import cuda_ntt, ntt
+    from pil2_stark_tpu_torch.parallel import ntt_sharded
 
     n = 1 << bits
     bits1 = ntt.split_bits(bits)
     bits2 = bits - bits1
     n1, n2 = 1 << bits1, 1 << bits2
-    x = random_field((n_cols, n), 100 + bits + n_cols, device)
-    lt = ntt.level_twiddles(bits, bits1, inverse, device)
-    y_k = cuda_ntt.level_planar(x, bits1, n2, n_cols, lt, inverse)
-    err2 = max_abs_err(y_k, cuda_ntt.level_planar_plain(x, bits1, n2, n_cols, lt, inverse))
-    err3 = max_abs_err(cuda_ntt.base_grid(y_k, bits2, n_cols, inverse),
-                       cuda_ntt.base_grid_plain(y_k, bits2, n_cols, inverse))
-    muls2 = n_cols * n * (bits1 / 2 + 1)
-    bytes2 = 2 * n_cols * n * 8 + n1 * n2 * 8
-    muls3 = n_cols * n * bits2 / 2
-    bytes3 = 2 * n_cols * n * 8
+    m1, m2 = n1 // ranks, n2 // ranks
+    n_local = n // ranks
+    x = random_field((n_cols, n1 * m2), 100 + bits + n_cols, device)
+    if ranks == 1:
+        lt = ntt.level_twiddles(bits, bits1, inverse, device)
+    else:
+        lt = ntt_sharded.rank_twiddles(bits, inverse, ranks, ranks - 1, device)
+    y_k = cuda_ntt.level_planar(x, bits1, m2, n_cols, lt, inverse)
+    err2 = max_abs_err(y_k, cuda_ntt.level_planar_plain(x, bits1, m2, n_cols, lt, inverse))
+    # B3's input: B2's output on one device, a rank's o1 block after the
+    # exchange on a mesh
+    z = y_k if ranks == 1 else random_field((n_cols * n2, m1), 150 + bits + n_cols, device)
+    err3 = max_abs_err(cuda_ntt.base_grid(z, bits2, n_cols, inverse),
+                       cuda_ntt.base_grid_plain(z, bits2, n_cols, inverse))
+    muls2 = n_cols * n_local * (bits1 / 2 + 1)
+    bytes2 = 2 * n_cols * n_local * 8 + n1 * m2 * 8
+    muls3 = n_cols * n_local * bits2 / 2
+    bytes3 = 2 * n_cols * n_local * 8
     shape = {"n_cols": n_cols, "n": n, "n1": n1, "n2": n2, "inverse": inverse}
+    if ranks > 1:
+        shape.update(ranks=ranks, b2_n2=m2, b3_n1=m1)
     rows = [
         _kernel_row("level_planar", "pil2_stark_tpu_torch/csrc/ntt.cu",
                     "pil2_stark_tpu/ops/pallas_ntt.py:439", err2,
-                    lambda: cuda_ntt.level_planar(x, bits1, n2, n_cols, lt, inverse),
-                    lambda: cuda_ntt.level_planar_plain(x, bits1, n2, n_cols, lt, inverse),
+                    lambda: cuda_ntt.level_planar(x, bits1, m2, n_cols, lt, inverse),
+                    lambda: cuda_ntt.level_planar_plain(x, bits1, m2, n_cols, lt, inverse),
                     muls2 * IMAD_PER_GL_MUL, bytes2, shape, path),
         _kernel_row("base_grid", "pil2_stark_tpu_torch/csrc/ntt.cu",
                     "pil2_stark_tpu/ops/pallas_ntt.py:497", err3,
-                    lambda: cuda_ntt.base_grid(y_k, bits2, n_cols, inverse),
-                    lambda: cuda_ntt.base_grid_plain(y_k, bits2, n_cols, inverse),
+                    lambda: cuda_ntt.base_grid(z, bits2, n_cols, inverse),
+                    lambda: cuda_ntt.base_grid_plain(z, bits2, n_cols, inverse),
                     muls3 * IMAD_PER_GL_MUL, bytes3, shape, path),
     ]
     for row, passes in zip(rows, planar_passes(bits, inverse).values()):
         row["passes"] = len(passes)
         row["ptxas"] = {p: _ptxas(label, "ntt") for p, label in passes.items()}
-    del x, y_k
+    del x, y_k, z
     torch.cuda.empty_cache()
     return rows
 
@@ -1183,6 +1214,8 @@ def phase_prove(device, setup_name, counters):
     peak = max(res_warm["peakBytes"].values())  # every allocation happens inside a phase
     same = canon(res["proof"]) == canon(res_warm["proof"])
     library = {"proof": res["proof"], "publics": res["publics"]}
+    if compiled:  # the mesh phase proves the VM again from this setup and these columns
+        library.update(setup=setup, columns=(const_cols, cm_cols, publics))
     t0 = time.perf_counter()
     ok = verifier.verify(res_warm["proof"], res_warm["publics"], setup["constRoot"],
                          setup["starkInfo"], setup["verifierInfo"])
@@ -1219,6 +1252,228 @@ def phase_prove(device, setup_name, counters):
         raise AssertionError(f"launches (counted, expected) on the {setup_name} prove: "
                              f"{miscounted}")
     return launches, library
+
+
+def proof_digest(proof) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(canon(proof)).encode()).hexdigest()
+
+
+def mesh_prove(mesh, setup, columns, counters, verify=True):
+    """A cold and a warm prove(mesh=) of one setup: times, phases, each
+    card's peak, the bytes exchanged and the fixed-column uploads of each,
+    the cold prove's launches, the proof's digest, whether it verifies."""
+    import torch
+
+    from pil2_stark_tpu_torch.stark import prover, verifier
+
+    const_cols, cm_cols, publics = columns
+
+    def run():
+        mesh.exchanged_bytes = 0
+        t = time.perf_counter()
+        with fixed_uploads(const_cols.buffer) as uploads:
+            res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
+                               setup["constTree"], (cm_cols.buffer, publics), mesh=mesh)
+            for card in mesh.local_devices():
+                if card.type == "cuda":
+                    torch.cuda.synchronize(card)
+        return res, time.perf_counter() - t, uploads[0], mesh.exchanged_bytes
+
+    for c in counters:
+        c.launches = 0
+    res, cold, uploads_cold, moved_cold = run()
+    launches = {c.__name__: c.launches for c in counters}
+    res_warm, warm, uploads_warm, moved_warm = run()
+    digest = proof_digest(res["proof"])
+    ok = None
+    if verify:
+        ok = bool(verifier.verify(res_warm["proof"], res_warm["publics"], setup["constRoot"],
+                                  setup["starkInfo"], setup["verifierInfo"]))
+    device_peaks = {}
+    for per_card in res_warm["devicePeakBytes"].values():
+        for card, peak in per_card.items():
+            device_peaks[card] = max(device_peaks.get(card, 0), peak)
+    return {"mesh": {"axes": list(mesh.axis_names), "shape": mesh.shape,
+                     "ranks": [str(mesh.device(r)) for r in mesh.local_ranks],
+                     "process": mesh.process_index, "processes": mesh.n_processes},
+            "cold_s": cold, "warm_s": warm, "proof_sha256": digest,
+            "repeatable": digest == proof_digest(res_warm["proof"]), "verified": ok,
+            "phases_warm_s": res_warm["timings"], "phases_cold_s": res["timings"],
+            "phases_peak_bytes_by_card": res_warm["devicePeakBytes"],
+            "peak_bytes_by_card": device_peaks,
+            "exchanged_bytes_per_prove": [moved_cold, moved_warm],
+            "fixed_uploads_per_prove": [uploads_cold, uploads_warm], "launches": launches}
+
+
+def _check_mesh_prove(label, out, want):
+    zero = [k for k, v in out["launches"].items() if v == 0]
+    miscounted = {k: (out["launches"][k], v) for k, v in PROVE_LAUNCHES.items()
+                  if out["launches"].get(k, v) != v}
+    if out["proof_sha256"] != want or not out["repeatable"] or out["verified"] is False:
+        raise AssertionError(f"{label}: the mesh proof differs from prove_vm's, is not "
+                             f"repeatable or does not verify")
+    if any(out["fixed_uploads_per_prove"]):
+        raise AssertionError(f"{label}: the proves uploaded the fixed columns "
+                             f"{out['fixed_uploads_per_prove']} times")
+    if zero or miscounted:
+        raise AssertionError(f"{label}: kernels never launched {zero}, or launches (counted, "
+                             f"expected) {miscounted}")
+    if not all(out["exchanged_bytes_per_prove"]):
+        raise AssertionError(f"{label}: the mesh prove exchanged nothing")
+
+
+def phase_mesh(device, counters, vm):
+    """The multi-device prover on the VM 2^20 / ext 2^23, from prove_vm's
+    setup and columns: B2 and B3 at one rank's shapes of a mesh of
+    MESH_RANKS, held against their plain versions and timed; prove(mesh=)
+    on MESH_RANKS virtual ranks of this card (counters zeroed just before
+    its cold prove and read just after); with two or more cards the same
+    over every card in this process, and one process per card over NCCL
+    (mesh_worker).  Each proof must equal prove_vm's byte for byte, verify,
+    launch every kernel of the path and upload the fixed columns zero
+    times.  A path this machine cannot run is named as not run.  Returns
+    the kernel rows and the virtual mesh's launches."""
+    import torch
+
+    from pil2_stark_tpu_torch.parallel import distributed, ntt_sharded
+
+    t0 = time.perf_counter()
+    rows = []
+    for bits, cols, inverse in VM_PLANAR:
+        rows += _ntt_rows(device, bits, cols, inverse, "mesh", ranks=MESH_RANKS)
+    for r in rows:
+        emit({"phase": "mesh", **r})
+    bad = [(r["name"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at mesh shapes: {bad}")
+    want = proof_digest(vm["proof"])
+    paths = {}
+    virtual = distributed.proof_mesh(devices=[device] * MESH_RANKS)
+    out = mesh_prove(virtual, vm["setup"], vm["columns"], counters)
+    emit({"phase": "mesh", "path": "virtual", "setup": VM_SETUP, **out})
+    _check_mesh_prove("virtual", out, want)
+    paths["virtual"] = f"ran: {MESH_RANKS} ranks on {device}"
+    launches = out["launches"]
+    _profile_mesh(virtual, vm)
+    n_cards = torch.cuda.device_count()
+    try:
+        for bits in (VM_N_BITS, VM_BITS):
+            ntt_sharded.check_shape(bits, n_cards)
+        why_not = None if n_cards >= 2 else f"{n_cards} card"
+    except ValueError as e:
+        why_not = str(e)
+    if why_not is None:
+        cards = distributed.proof_mesh()
+        out = mesh_prove(cards, vm["setup"], vm["columns"], counters)
+        emit({"phase": "mesh", "path": "cards", "setup": VM_SETUP, **out})
+        _check_mesh_prove("cards", out, want)
+        paths["cards"] = f"ran: {n_cards} cards in one process"
+        torch.cuda.empty_cache()
+        paths["processes_nccl"] = _nccl_processes(n_cards, want)
+    else:
+        paths["cards"] = paths["processes_nccl"] = f"not run: {why_not}"
+    emit({"phase": "mesh", "paths": paths, "seconds": time.perf_counter() - t0})
+    return rows, launches
+
+
+def _profile_mesh(mesh, vm):
+    """One more warm prove(mesh=) under the profiler: the card's idle share
+    over the prove and its phases, and the device's top operations."""
+    import os
+
+    import torch
+
+    from pil2_stark_tpu_torch.stark import prover
+    from pil2_stark_tpu_torch.utils import timing
+
+    const_cols, cm_cols, publics = vm["columns"]
+    setup = vm["setup"]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PROFILE_DIR, "mesh")
+    res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
+                       setup["constTree"], (cm_cols.buffer, publics), mesh=mesh,
+                       profile_dir=out_dir)
+    with open(res["trace"]) as f:
+        trace = json.load(f)
+    by_phase = {name: {"s": secs, "idle_share": timing.idle_share(trace, window=name)}
+                for name, secs in res["timings"].items()
+                if secs > 0.02 and not name.endswith(".upload")}
+    emit({"phase": "mesh", "path": "virtual_profiled", "idle_share": timing.idle_share(trace),
+          "phases_s": res["timings"], "idle_share_by_phase": by_phase,
+          "device": device_ops(trace)})
+    del res, trace
+    torch.cuda.empty_cache()
+
+
+def _nccl_processes(n_cards, want):
+    """One process per card (mesh_worker), wired by NCCL: each must end
+    with prove_vm's proof."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    # each worker's output into a file of its own (under the checkout,
+    # gitignored): a full pipe would stall a worker inside a collective
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), MESH_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    logs = [(open(os.path.join(out_dir, f"worker{r}.out"), "w+"),
+             open(os.path.join(out_dir, f"worker{r}.err"), "w+")) for r in range(n_cards)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker", str(r),
+                               str(n_cards), str(port)], stdout=out, stderr=err)
+             for r, (out, err) in enumerate(logs)]
+    outs = []
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read()))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for out, err in logs:
+            out.close()
+            err.close()
+    for rank, ((stdout, stderr), p) in enumerate(zip(outs, procs)):
+        lines = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"mesh worker {rank} failed (exit {p.returncode}): "
+                                 f"{stderr[-3000:]}")
+        emit({"phase": "mesh", "path": "processes_nccl", **lines[-1]})
+        _check_mesh_prove(f"NCCL process {rank}", lines[-1], want)
+    return f"ran: {n_cards} processes, one card each, NCCL"
+
+
+def mesh_worker(rank, world, port):
+    """One process of the NCCL mesh: the VM's setup compiled on its card,
+    prove(mesh=) over every process's card, one JSON line."""
+    import torch
+
+    from pil2_stark_tpu_torch.compiler import pil1_parser
+    from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
+    from pil2_stark_tpu_torch.parallel import distributed
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
+
+    rank, world = int(rank), int(world)
+    distributed.init_distributed(f"localhost:{port}", world, rank, backend="nccl")
+    try:
+        data = stark_setup.read_setup(VM_SETUP)
+        pil = pil1_parser.compile_pil_source(poseidon_vm.pil_source(VM_N_BITS))
+        pil["name"] = "PoseidonVM"
+        columns = machine_columns(dict(data, references=pil["references"]))
+        setup = stark_setup.stark_setup(
+            columns[0].buffer, pil, gadgets.stark_struct(VM_N_BITS, VM_BITS, n_queries=32))
+        mesh = distributed.proof_mesh()
+        out = mesh_prove(mesh, setup, columns, prove_counters(), verify=rank == 0)
+        emit({"rank": rank, "card": str(torch.cuda.current_device()), **out})
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
 
 
 CLI_DIR = "pil2_stark_tpu_torch/_build/cli"  # under the checkout, gitignored; removed after
@@ -1511,9 +1766,15 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def main():
+def main(argv):
     import torch
 
+    if argv[:1] == ["--mesh-worker"]:
+        return mesh_worker(*argv[1:])
+    only_mesh = argv == ["--only", "mesh"]
+    if argv and not only_mesh:
+        print("usage: chip_smoke.py [--only mesh]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1526,16 +1787,23 @@ def main():
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     phase_build()
-    phase_compile()
-    rows = phase_kernels(device)
-    tool_rows, launches = phase_tools(device, rows)
-    phase_small(device)
-    phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
+    rows, tool_rows, launches = [], [], {}
+    if not only_mesh:
+        phase_compile()
+        rows = phase_kernels(device)
+        tool_rows, launches = phase_tools(device, rows)
+        phase_small(device)
+        phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
     library = {}
-    for name in (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP):
+    for name in (VM_SETUP,) if only_mesh else (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP):
         launches[name], library[name] = phase_prove(device, name, counters)
-    launches["cli"] = phase_cli(device, counters, library[VM_SETUP])
-    phase_profile(device, (VM_SETUP, LARGE_SETUP))
+    mesh_rows, launches["mesh"] = phase_mesh(device, counters, library[VM_SETUP])
+    rows += mesh_rows
+    del library[VM_SETUP]["setup"], library[VM_SETUP]["columns"]
+    torch.cuda.empty_cache()
+    if not only_mesh:
+        launches["cli"] = phase_cli(device, counters, library[VM_SETUP])
+        phase_profile(device, (VM_SETUP, LARGE_SETUP))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     names = {"base_rows": "base_rows", "level_planar": "level_planar",
@@ -1555,4 +1823,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

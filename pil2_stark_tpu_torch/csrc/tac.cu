@@ -51,13 +51,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxOpenings = 16;
 constexpr int kBatch = 16;  // norms a thread owns (PERF.md §6)
 
+// SMs of the current card, read once per card
 int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }
+  constexpr int kMaxCards = 64;
+  static int counts[kMaxCards] = {};
+  int dev = 0, count = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kMaxCards && counts[dev] > 0) return counts[dev];
+  cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < kMaxCards) counts[dev] = count;
   return count;
 }
 

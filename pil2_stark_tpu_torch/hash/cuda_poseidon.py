@@ -113,7 +113,8 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     state = state.contiguous()
     out = torch.empty_like(state)
     stream = ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream)
-    rc = _lib().poseidon_permute(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
+    with torch.cuda.device(state.device):  # launch on the tensor's card
+        rc = _lib().poseidon_permute(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"poseidon_permute launch failed: CUDA error {rc}")
     permute.launches += 1

@@ -104,6 +104,8 @@ def _ptr(t) -> int:
 
 
 def _stream(t: torch.Tensor):
+    """The current stream of t's card; the caller launches under
+    torch.cuda.device(t.device), so that the kernel runs on that card."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
@@ -158,9 +160,10 @@ def level_planar(x, bits1: int, n2: int, n_cols: int, level_tw, inverse: bool) -
     scratch = torch.empty_like(x) if two else None
     tw = radix_twiddles(bits1, inverse, x.device) if two else None
     out = torch.empty((n_cols * n2, n1), dtype=torch.int64, device=x.device)
-    rc = _lib().gl_level_planar(
-        x.data_ptr(), _ptr(tw), level_tw.data_ptr(), _ptr(scratch), out.data_ptr(), bits1,
-        n2.bit_length() - 1, n_cols, int(inverse), _stream(x))
+    with torch.cuda.device(x.device):
+        rc = _lib().gl_level_planar(
+            x.data_ptr(), _ptr(tw), level_tw.data_ptr(), _ptr(scratch), out.data_ptr(), bits1,
+            n2.bit_length() - 1, n_cols, int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gl_level_planar launch failed: CUDA error {rc}")
     level_planar.launches += 2 if two else 1
@@ -206,8 +209,9 @@ def base_grid(y, bits2: int, n_cols: int, inverse: bool, *, out=None) -> torch.T
         out = torch.empty_like(y)
     scratch = torch.empty_like(y) if two else None
     tw = radix_twiddles(bits2, inverse, y.device) if two else None
-    rc = _lib().gl_base_grid(y.data_ptr(), _ptr(tw), _ptr(scratch), out.data_ptr(), bits2, n1,
-                             n_cols, int(inverse), _stream(y))
+    with torch.cuda.device(y.device):
+        rc = _lib().gl_base_grid(y.data_ptr(), _ptr(tw), _ptr(scratch), out.data_ptr(), bits2,
+                                 n1, n_cols, int(inverse), _stream(y))
     if rc != 0:
         raise RuntimeError(f"gl_base_grid launch failed: CUDA error {rc}")
     base_grid.launches += 2 if two else 1
@@ -271,8 +275,9 @@ def base_rows(x, bits: int, inverse: bool) -> torch.Tensor:
         tw = radix_twiddles(bits, inverse, x.device)
         if radix_split(bits)[0]:
             y = torch.empty_like(x)
-    rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), _ptr(y),
-                             out.data_ptr(), bits, lanes, int(inverse), _stream(x))
+    with torch.cuda.device(x.device):
+        rc = _lib().gl_base_rows(x.data_ptr(), tw.data_ptr(), _ptr(y),
+                                 out.data_ptr(), bits, lanes, int(inverse), _stream(x))
     if rc != 0:
         raise RuntimeError(f"gl_base_rows launch failed: CUDA error {rc}")
     launches = 1 if y is None else 2

@@ -41,6 +41,8 @@ def _lib():
 
 
 def _stream(t: torch.Tensor):
+    """The current stream of t's card; the caller launches under
+    torch.cuda.device(t.device), so that the kernel runs on that card."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
@@ -91,8 +93,10 @@ def tac_program(gen, cols, scalars: torch.Tensor, n: int) -> None:
     lib = program_library(gen)
     c_cols = (ctypes.c_longlong * max(len(cols), 1))(*cols)
     c_shifts = (ctypes.c_longlong * max(len(gen.shifts), 1))(*gen.shifts)
-    rc = lib.tac_run(ctypes.cast(c_cols, ctypes.c_void_p), ctypes.cast(c_shifts, ctypes.c_void_p),
-                     scalars.data_ptr(), n, _stream(scalars))
+    with torch.cuda.device(scalars.device):
+        rc = lib.tac_run(ctypes.cast(c_cols, ctypes.c_void_p),
+                         ctypes.cast(c_shifts, ctypes.c_void_p), scalars.data_ptr(), n,
+                         _stream(scalars))
     if rc != 0:
         raise RuntimeError(f"tac_program {gen.digest} launch failed: CUDA error {rc}")
     tac_program.launches += gen.n_segments
@@ -136,8 +140,9 @@ def gl_xdiv(x_ext: torch.Tensor, xi_list) -> torch.Tensor:
         xi3, b1, c2, c1, c0 = xdiv_coefficients(xi)
         words += [*xi3, *b1, c2, c1, c0]
     coefs = (ctypes.c_longlong * len(words))(*[gl.i64(v) for v in words])
-    rc = _lib().gl_xdiv(x_ext.data_ptr(), ctypes.cast(coefs, ctypes.c_void_p), len(xi_list),
-                        out.data_ptr(), n, _stream(x_ext))
+    with torch.cuda.device(x_ext.device):
+        rc = _lib().gl_xdiv(x_ext.data_ptr(), ctypes.cast(coefs, ctypes.c_void_p),
+                            len(xi_list), out.data_ptr(), n, _stream(x_ext))
     if rc != 0:
         raise RuntimeError(f"gl_xdiv with {len(xi_list)} openings failed: CUDA error {rc} "
                            "(csrc/tac.cu kMaxOpenings bounds the openings)")

@@ -338,13 +338,15 @@ TAC_SEGMENTS(TAC_KERNEL)
 
 __global__ void tac_derive(uint64_t* t) {{ derive(t); }}
 
+// SMs of the current card, read once per card
 int sm_count() {{
-  static int count = 0;
-  if (count == 0) {{
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }}
+  constexpr int kMaxCards = 64;
+  static int counts[kMaxCards] = {{}};
+  int dev = 0, count = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kMaxCards && counts[dev] > 0) return counts[dev];
+  cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < kMaxCards) counts[dev] = count;
   return count;
 }}
 

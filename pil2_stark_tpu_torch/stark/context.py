@@ -31,6 +31,7 @@ class ProverCtx:
         self.const_tree = const_tree
         self.device = device
         self.debug = debug
+        self.mesh = None  # the parallel.distributed.Mesh a sharded prove commits over
         self.trees = {}
 
         ss = pil_info["starkStruct"]

@@ -12,6 +12,15 @@ to 2^24 points and on the row route's B1 above, the FRI folds on B1, every
 GL Merkle tree on kernel B4 (hash/cuda_poseidon.py; BN128 trees are built
 on the host through ctx.mh, hash/mh.py), the im-pol, Q and FRI
 programs on T1 (ops/torch_tac.py) and xDivXSubXi on T2 (ops/cuda_tac.py).
+
+With a mesh (parallel/distributed.py; ref prover.py:429-484, 588-590) the
+commits shard over every rank: each stage's columns and Q's split run the
+four-step network with its exchanges (parallel/ntt_sharded.py) and the
+trees are built as subtrees with the top on the lead
+(parallel/merkle_sharded.py).  The TAC programs, the evals, xDivXSubXi, FRI
+and the queries run on the mesh's lead device, with every extended section
+gathered there, as the reference runs FRI replicated.  The proof equals the
+single-device proof bit for bit.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from ..field import f3, gl64
 from ..field import torch_gl as gl
 from ..ops import ntt as ntt_ops
 from ..ops import torch_tac
+from ..parallel import merkle_sharded, ntt_sharded
 from ..utils.timing import PhaseTimer
 from . import device as dev
 from . import expr_eval, hints
@@ -32,9 +42,10 @@ from .fri import FRI
 
 
 def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=None,
-          logger=None, debug=False, profile_dir=None, external_challenges=None):
+          logger=None, debug=False, profile_dir=None, external_challenges=None, mesh=None):
     """Returns {proof, publics, challenges, challengesFRISteps, timings,
-    peakBytes}; peakBytes holds each phase's peak device memory on CUDA.
+    peakBytes, devicePeakBytes}; peakBytes holds each phase's peak device
+    memory on the prove's card, devicePeakBytes each card's.
 
     inputs = (stage-1 witness columns as an (N, nCm1) u64 array, publics).
     const_tree is the tree from stark.setup.load_setup (a DeviceTree, or
@@ -57,19 +68,35 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
     external_challenges (vadcop, pil2_stark_tpu/stark/prover.py:79-86):
     {"stages": [[3-tuple, ...] for stages 1..nStages+3], "friSteps": [one
     per FRI step, then the query challenge]} replace the transcript's.
+
+    mesh (parallel.distributed.Mesh): shard the commits over its ranks; the
+    rest of the prove runs on its lead device, which `device` may name and
+    the const tree must live on.  Across processes every process runs this
+    prove on the same inputs and gets the same proof.  A mesh refuses debug
+    mode and BN128 trees (the reference's device backend refuses them), and
+    a transform whose factors the mesh does not divide raises.
     """
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.lead:
+            raise ValueError(f"device {device} is not the mesh's lead device {mesh.lead}")
+        if debug:
+            raise ValueError("a debug prove runs on one device: pass no mesh")
+        if stark_info["starkStruct"].get("verificationHashType", "GL") != "GL":
+            raise ValueError("a mesh builds GL trees only; BN128 trees are built on the host")
+        device = mesh.lead
     device = resolve_device(device)
     if profile_dir is not None:
         return _profiled(profile_dir, device, lambda: prove(
             stark_info, expressions_info, const_pols, const_tree, inputs, device=device,
-            logger=logger, debug=debug, external_challenges=external_challenges))
+            logger=logger, debug=debug, external_challenges=external_challenges, mesh=mesh))
     if not debug and const_tree.elements.device != device:
         raise ValueError(
             f"the const tree lives on {const_tree.elements.device}, the prove on {device}")
-    timer = PhaseTimer(logger, device)
+    timer = PhaseTimer(logger, device, None if mesh is None else mesh.local_devices())
     with timer.phase("init"):
         ctx = ProverCtx(stark_info, expressions_info, const_pols, const_tree, device, debug=debug)
     ctx.timer = timer
+    ctx.mesh = mesh
     ctx.external_challenges = external_challenges
 
     cm1_values, publics_inputs = inputs
@@ -166,6 +193,7 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
         "challengesFRISteps": ctx.challenges_fri_steps,
         "timings": timer.summary(),
         "peakBytes": timer.peaks,
+        "devicePeakBytes": timer.device_peaks,
     }
 
 
@@ -299,13 +327,25 @@ def _extend_and_merkelize(stage, ctx):
     key = f"stage{stage}.upload"
     ctx.timer.timings[key] = ctx.timer.timings.get(key, 0.0) + time.perf_counter() - t_up0
     ctx.dsections["n"][f"cm{stage}"] = dev_n
-    if n_pols > 0:
-        ext = ntt_ops.lde_planar(dev_n, ctx.n_bits, ctx.n_bits_ext)
+    if ctx.mesh is not None and n_pols > 0:
+        ext = ntt_sharded.sharded_lde(ctx.mesh.scatter(dev_n), ctx.n_bits, ctx.n_bits_ext,
+                                      ctx.mesh)
+        ctx.trees[stage] = _merkelize_sharded(ctx, ext, n_pols)
     else:
-        ext = torch.zeros((0, ctx.ext_N), dtype=torch.int64, device=ctx.device)
-    ctx.dsections["ext"][f"cm{stage}"] = ext
-    ctx.trees[stage] = ctx.mh.merkelize(ext, n_pols, ctx.ext_N)
+        if n_pols > 0:
+            ext = ntt_ops.lde_planar(dev_n, ctx.n_bits, ctx.n_bits_ext)
+        else:
+            ext = torch.zeros((0, ctx.ext_N), dtype=torch.int64, device=ctx.device)
+        ctx.trees[stage] = ctx.mh.merkelize(ext, n_pols, ctx.ext_N)
+    ctx.dsections["ext"][f"cm{stage}"] = ctx.trees[stage].elements
     return [ctx.mh.root(ctx.trees[stage])]
+
+
+def _merkelize_sharded(ctx, shards, n_pols):
+    """The tree of a sharded extended section, its elements gathered on
+    the lead device (ref prover.py:470-484)."""
+    return merkle_sharded.merkelize(ctx.mesh, shards, n_pols, ctx.ext_N,
+                                    ctx.mh.split_linear_hash)
 
 
 def _compute_q(ctx):
@@ -317,6 +357,9 @@ def _compute_q(ctx):
     n, ext_n = ctx.N, ctx.ext_N
     shift_in = pow(pow(gl64.SHIFT_INT, gl64.P_INT - 2, gl64.P_INT), n, gl64.P_INT)
     n_inv = pow(ext_n, gl64.P_INT - 2, gl64.P_INT)
+    n_pols_q = pil_info["mapSectionsN"].get(f"cm{q_stage}", 0)
+    if ctx.mesh is not None:
+        return _compute_q_sharded(ctx, q_stage, n_pols_q, shift_in, n_inv)
     # 1/extN of the iNTT folded into the shiftIn^p scale
     scale = gl.from_u64(gl64.powers(shift_in, q_deg, start=n_inv), ctx.device)
     qq1 = ntt_ops.planar_ntt(ctx.dq, ctx.n_bits_ext, True)
@@ -327,8 +370,26 @@ def _compute_q(ctx):
     padded[:, :n] = qq2.permute(1, 0, 2).reshape(q_deg * q_dim, n)
     ext = ntt_ops.planar_ntt(padded, ctx.n_bits_ext, False)
     ctx.dsections["ext"][f"cm{q_stage}"] = ext
-    n_pols_q = pil_info["mapSectionsN"].get(f"cm{q_stage}", 0)
     ctx.trees[q_stage] = ctx.mh.merkelize(ext, n_pols_q, ext_n)
+    return [ctx.mh.root(ctx.trees[q_stage])]
+
+
+def _compute_q_sharded(ctx, q_stage, n_pols_q, shift_in, n_inv):
+    """_compute_q over the mesh: the iNTT of Q's (qDim, extN) columns, the
+    move of each chunk p (its columns [p·N, (p+1)·N)) to rows p·qDim of the
+    first N columns, scaled by n_inv·shiftIn^p, and the NTT of the
+    (qDeg·qDim, extN) result."""
+    q_dim, q_deg = ctx.pil_info["qDim"], ctx.pil_info["qDeg"]
+    mesh, n = ctx.mesh, ctx.N
+    qq1 = ntt_sharded.sharded_ntt(mesh.scatter(ctx.dq), ctx.n_bits_ext, mesh, inverse=True)
+    ctx.dq = None
+    factors = gl64.powers(shift_in, q_deg, start=n_inv)
+    moves = [(p * n, p * q_dim, 0, n, int(factors[p])) for p in range(q_deg)]
+    padded = ntt_sharded.relayout(mesh, qq1, ctx.ext_N, q_deg * q_dim, moves)
+    del qq1
+    ext = ntt_sharded.sharded_ntt(padded, ctx.n_bits_ext, mesh)
+    ctx.trees[q_stage] = _merkelize_sharded(ctx, ext, n_pols_q)
+    ctx.dsections["ext"][f"cm{q_stage}"] = ctx.trees[q_stage].elements
     return [ctx.mh.root(ctx.trees[q_stage])]
 
 

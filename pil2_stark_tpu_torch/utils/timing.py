@@ -15,20 +15,27 @@ import torch
 
 
 class PhaseTimer:
-    def __init__(self, logger=None, device=None):
+    """devices: every device the prove runs on (a mesh's; default
+    [device]).  Each phase waits for all of their cards; ``peaks`` holds the
+    lead card's (`device`) peak per phase and ``device_peaks`` each card's."""
+
+    def __init__(self, logger=None, device=None, devices=None):
         self.timings: dict[str, float] = {}
         self.peaks: dict[str, int] = {}
+        self.device_peaks: dict[str, dict[str, int]] = {}
         self.logger = logger
         self.cuda = device if device is not None and device.type == "cuda" else None
+        devices = [device] if devices is None else devices
+        self.cards = list(dict.fromkeys(d for d in devices if d is not None and d.type == "cuda"))
 
     def sync(self):
-        if self.cuda is not None:
-            torch.cuda.synchronize(self.cuda)
+        for card in self.cards:
+            torch.cuda.synchronize(card)
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        if self.cuda is not None:
-            torch.cuda.reset_peak_memory_stats(self.cuda)
+        for card in self.cards:
+            torch.cuda.reset_peak_memory_stats(card)
         t0 = time.perf_counter()
         try:
             with torch.profiler.record_function(name):
@@ -37,9 +44,12 @@ class PhaseTimer:
         finally:
             dt = time.perf_counter() - t0
             self.timings[name] = self.timings.get(name, 0.0) + dt
+            peaks = self.device_peaks.setdefault(name, {})
+            for card in self.cards:
+                peaks[str(card)] = max(peaks.get(str(card), 0),
+                                       torch.cuda.max_memory_allocated(card))
             if self.cuda is not None:
-                peak = torch.cuda.max_memory_allocated(self.cuda)
-                self.peaks[name] = max(self.peaks.get(name, 0), peak)
+                self.peaks[name] = peaks[str(self.cuda)]
             if self.logger:
                 self.logger.debug(f"··· {name}: {dt * 1000:.1f} ms")
 

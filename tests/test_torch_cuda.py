@@ -516,3 +516,110 @@ def _host_tree_bytes(buff, width, height, tmp_path):
     path = str(tmp_path / "host.bin")
     merkle.write_tree(merkle.merkelize(buff, width, height), path)
     return open(path, "rb").read()
+
+
+# ---------------------------------------------------------------------------
+# the multi-device prover (parallel/): virtual ranks on one card, and every
+# card of the machine where it has two or more
+
+
+def _card_mesh(kind):
+    from pil2_stark_tpu_torch.parallel import distributed
+
+    if kind == "cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two or more cards")
+        return distributed.proof_mesh()
+    return distributed.proof_mesh(devices=[torch.device("cuda", 0)] * 4)
+
+
+@pytest.mark.parametrize("kind", ["virtual4", "cards"])
+def test_sharded_ntt_lde_tree_on_card(card, kind):
+    """The sharded transform (forward and inverse, and above 2^12 points
+    the planar factors), the LDE and the tree equal one device's."""
+    from pil2_stark_tpu_torch.parallel import merkle_sharded, ntt_sharded
+
+    mesh = _card_mesh(kind)
+    for bits, cols in ((10, 3), (18, 5)):
+        x = _rand((cols, 1 << bits), bits, card)
+        for inverse in (False, True):
+            got = mesh.gather(ntt_sharded.sharded_ntt(mesh.scatter(x), bits, mesh, inverse))
+            assert torch.equal(got, ntt.planar_ntt(x, bits, inverse))
+    x = _rand((4, 1 << 16), 7, card)
+    ext = ntt_sharded.sharded_lde(mesh.scatter(x), 16, 19, mesh)
+    want = ntt.lde_planar(x, 16, 19)
+    assert torch.equal(mesh.gather(ext), want)
+    tree = merkle_sharded.merkelize(mesh, ext, 4, 1 << 19)
+    single = stark_device.merkelize(want, 4, 1 << 19)
+    assert all(torch.equal(a, b) for a, b in zip(tree.levels, single.levels))
+    assert mesh.exchanged_bytes > 0
+    torch.cuda.synchronize()
+
+
+def test_kernels_launch_on_the_tensors_card(card):
+    """Every wrapper launches on its tensor's card: B1-B4 and T2 on cuda:1
+    equal their plain versions, and a fibonacci prove on cuda:1 (T1 too)
+    equals the CPU's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import prover, setup
+
+    other = torch.device("cuda", 1)
+    assert torch.cuda.current_device() == 0
+    x = _rand((3, 1 << 16), 11, other)
+    lt = ntt.level_twiddles(16, 4, False, other)
+    y = cuda_ntt.level_planar(x, 4, 1 << 12, 3, lt, False)
+    assert torch.equal(y, cuda_ntt.level_planar_plain(x, 4, 1 << 12, 3, lt, False))
+    assert torch.equal(cuda_ntt.base_grid(y, 12, 3, False),
+                       cuda_ntt.base_grid_plain(y, 12, 3, False))
+    rows = x.reshape(1 << 12, 48)
+    assert torch.equal(cuda_ntt.base_rows(rows, 12, True),
+                       cuda_ntt.base_rows_plain(rows, 12, True))
+    st = _rand((12, 1 << 12), 12, other)
+    assert torch.equal(cuda_poseidon.permute(st), cuda_poseidon.permute_plain(st))
+    xs = x[0].contiguous()
+    xis = [(5, 6, 7), (8, 9, 10)]
+    assert torch.equal(cuda_tac.gl_xdiv(xs, xis), stark_device.compute_xdiv_plain(xs, xis))
+    data = setup.read_setup("fibonacci_6")
+    const_cols, cm_cols, publics = fibonacci.build(data["references"], 64)
+    out = []
+    for dev in (other, torch.device("cpu")):
+        s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
+                             const_cols.buffer, device=dev)
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics), device=dev)
+        out.append(_canon(res["proof"]))
+    assert out[0] == out[1]
+    torch.cuda.synchronize(other)
+
+
+@pytest.mark.parametrize("name", ["all_8", "poseidon_vm_6"])
+@pytest.mark.parametrize("kind", ["virtual4", "cards"])
+def test_mesh_proof_on_card_equals_cpu(card, name, kind):
+    """prove(mesh=) on the card equals the CPU's single-device proof and
+    verifies; the fixed columns stay on the lead card."""
+    from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
+    from pil2_stark_tpu_torch.stark import prover, setup, verifier
+
+    mesh = _card_mesh(kind)
+    data = setup.read_setup(name)
+    n = 1 << data["nBits"]
+    if name == "all_8":
+        const_cols, cm_cols, publics = gadgets.build_all(data["references"], n)
+    else:
+        const_cols, cm_cols, publics = poseidon_vm.build(data["references"], n, _vm_inputs(n))
+    out = []
+    for dev, m in ((mesh.lead, mesh), (torch.device("cpu"), None)):
+        s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
+                             const_cols.buffer, device=dev)
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics), mesh=m,
+                           device=None if m else dev)
+        out.append(_canon(res["proof"]))
+        if m is not None:
+            assert set(res["devicePeakBytes"]["stage1.commit"]) == {
+                str(d) for d in mesh.local_devices()}
+    assert out[0] == out[1]
+    assert verifier.verify(res["proof"], res["publics"], s["constRoot"], s["starkInfo"],
+                           s["verifierInfo"])

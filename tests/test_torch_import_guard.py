@@ -3,8 +3,9 @@ from import, every module of pil2_stark_tpu_torch imports (its CLI,
 __main__, and the BN128 hash modules among them), the port
 compiles fibonacci 2^6 to its committed setup, sets it up, proves and
 verifies it on the CPU, the Poseidon VM's
-builders, debug mode, fibv and the global constraints run, and the CLI
-proves and verifies fibonacci 2^6 on the CPU.  Its sources
+builders, debug mode, fibv and the global constraints run, the CLI
+proves and verifies fibonacci 2^6 on the CPU, and the multi-device prover
+(parallel/) runs a sharded transform and tree on 4 CPU ranks.  Its sources
 name neither package in an import statement, and its entry points refuse
 to fall back to the CPU when no card is there."""
 import pathlib
@@ -72,6 +73,18 @@ with tempfile.TemporaryDirectory() as d:
 from pil2_stark_tpu_torch.hash import merkle_bn128, transcript_bn128
 assert merkle_bn128.merkelize(np.arange(12, dtype=np.uint64), 4, 3).root > 0
 assert len(transcript_bn128.TranscriptBN128().get_field()) == 3
+# the multi-device prover: a sharded transform and tree on 4 CPU ranks
+from pil2_stark_tpu_torch.field import torch_gl
+from pil2_stark_tpu_torch.ops import ntt
+from pil2_stark_tpu_torch.parallel import distributed, merkle_sharded, ntt_sharded
+assert {"pil2_stark_tpu_torch.parallel.distributed", "pil2_stark_tpu_torch.parallel.ntt_sharded",
+        "pil2_stark_tpu_torch.parallel.merkle_sharded"} <= set(names)
+distributed.init_distributed()
+mesh = distributed.proof_mesh(devices=["cpu"] * 4)
+x = torch_gl.from_u64(np.arange(3 * 256, dtype=np.uint64).reshape(3, 256), "cpu")
+ext = ntt_sharded.sharded_ntt(mesh.scatter(x), 8, mesh)
+assert (mesh.gather(ext) == ntt.planar_ntt(x, 8, False)).all()
+assert merkle_sharded.merkelize(mesh, ext, 3, 256).root.shape == (4,)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("IMPORTED", len(names))
 '''
