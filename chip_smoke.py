@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
   1. build       — compile every CUDA source of the port and the T1 kernel
-                   generated for each TAC program of both proves (one nvcc
-                   per source, all in parallel); registers and spills from
+                   generated for each TAC program of the proves and of the
+                   recursion machines (recursion_programs; one nvcc per
+                   source, all in parallel); registers and spills from
                    ptxas (B1's 64-point passes and T2 at two openings in
                    their own entry, B2's and B3's passes at the planar
                    transforms of both proves in another), and SASS
@@ -50,17 +51,24 @@ Phases, each printing one JSON line:
                    16, merkleTreeCustom false and true: trees on the host,
                    transforms and T1/T2 on the card) must equal the CPU's
                    proof, verify and upload the fixed columns zero times,
-                   with the host seconds of each BN128 tree;
+                   with the host seconds of each BN128 tree; then the
+                   smallest chain of the recursion tier: fibonacci 2^4 /
+                   ext 2^7 with 2 queries (card = CPU), its verifier
+                   circuit (pil2circom) through the port's circom
+                   front-end, its C12 and C18 machines, and the C12 of the
+                   vadcop Aggregate2 circuit of two such proofs, each
+                   proved on the card and on the CPU (identical, verified);
   5. large_ntt   — a 2^25-point transform of 3 columns (the row route on
                    B1): intt(ntt(x)) == x, ntt equal to the same route with
                    the plain B1, and 4 outputs equal to a host evaluation of
                    the polynomials; its time and peak memory;
   6. prove       — prove the all-gadgets machine at 2^20 rows (nBitsExt 22,
-                   32 queries) on the card through prove(); verify the proof;
-                   report cold and warm wall time, the phase breakdown and
-                   peak memory;
+                   32 queries) on the card through prove(), once (its host
+                   hints take about 100 s a prove); verify the proof;
+                   report the wall time, the phase breakdown and peak
+                   memory;
   7. prove_large — the same for fibonacci at 2^22 rows, nBitsExt 25 (the
-                   row route, setups/fibonacci_22.json);
+                   row route, setups/fibonacci_22.json), cold and warm;
   8. prove_vm    — the same for the Poseidon VM at 2^20 rows (2^15
                    permutations of random states, nBitsExt 23, 32
                    queries), the widest machine: 39 fixed, 12 witness and
@@ -87,6 +95,13 @@ Phases, each printing one JSON line:
                    `prove --model fibonacci --nbits 6` and `verify` (exit
                    0; exit 1 with a public changed) in fresh processes on
                    the default device; seconds per subcommand and bytes;
+                   then the smallest recursion chain through the CLI:
+                   `prove --model fibonacci --nbits 4`, `pil2circom`,
+                   `compressor-setup --cols 12`, `compressor-exec`, `prove
+                   --pil-json ...` of the C12 (its proof.json equal to the
+                   small phase's library proof, launches counted) and
+                   `verify` in a fresh process; `buildchelpers` on the VM
+                   2^20, read back;
   8c. mesh       — the multi-device prover (parallel/) on the VM 2^20 /
                    ext 2^23 with prove_vm's setup and columns: B2 and B3 at
                    one rank's shapes of a mesh of MESH_RANKS (21 × 2^23
@@ -102,7 +117,32 @@ Phases, each printing one JSON line:
   9. profile     — one warm prove each of the VM and fibonacci 2^22 under
                    prove(profile_dir=): the card's idle share over the prove
                    (utils/timing.py::idle_share) and the device's top
-                   operations by time.
+                   operations by time;
+ 10. recursion   — fibonacci 2^22 / ext 2^25 with 32 queries (the
+                   fibonacci_22 struct, its FRI ending at 4 bits: ROADMAP
+                   hazard 8) compiled, set up and proved on the default
+                   device and verified right after the kernels phase; the
+                   host half of the chain runs meanwhile in a process of its
+                   own (this script with --recursion-worker): pil2circom,
+                   the circom front-end on the proof's zkin and check()
+                   (signals, constraints, custom-gate uses, seconds, peak
+                   RSS), then the C12 and C18 machines (compressor setup,
+                   exec).  At the end, the C12 and C18 are compiled by the
+                   port (blowup 2, 64 queries, FRI steps of 4 bits), their
+                   six T1 programs built in one round, set up on the card;
+                   B2/B3 at each machine's stage-1 iNTT and widest blowup-2
+                   NTT, B4 at its leaf batch, B1 at its first FRI fold, T1
+                   on its three programs and T2 at its extended domain are
+                   held against their plain versions (paths "recursion"
+                   and "recursion_c18"); the C12 is proved cold and warm
+                   (phases, peak, launches, no fixed-column upload) and
+                   once more under the profiler (idle share); the C18 is
+                   proved once; every proof must verify.  The worker, once
+                   its machines are written, runs a debug prove on the card
+                   of the C12's witness with one corrupted wire (minutes of
+                   host constraint checks), which must find errors.  The
+                   recursion machines' T1 programs build in a thread from
+                   the start of the build phase (RecursionBuild).
 Every prove must upload the fixed columns zero times (the const tree keeps
 them on the card; fixed_uploads_per_prove, cold and warm).
 In each prove phase the kernels' launch counters are zeroed just before the
@@ -110,11 +150,16 @@ cold prove and read just after it, and every kernel must have launched (B1,
 B2, B3, B4; T1 three times, once per program, and T2 once); B1's kernel
 launches are also reported by shape (two per base of more than 64 rows).  B2 and B3 count
 two launches per call above 2^6 points (their two passes).  The cli
-phase's launches are the kernels line's `launches_by_path["cli"]`.
+phase's launches are the kernels line's `launches_by_path["cli"]` (the
+VM) and `["cli_recursion"]` (the C12); the recursion phase's
+`["recursion"]` (the C12's cold prove) and `["recursion_c18"]`.
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Needs one CUDA
 card; imports nothing of JAX.  `python3 chip_smoke.py --only mesh` runs the
-build, prove_vm and mesh phases alone (for a machine with four cards).
+build, prove_vm and mesh phases alone (for a machine with four cards);
+`--only recursion` the build, the small and cli recursion chains and the
+recursion phase.  Every process the script starts is ended before it
+exits.
 """
 from __future__ import annotations
 
@@ -123,6 +168,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 
 P = 0xFFFFFFFF00000001
@@ -146,6 +192,21 @@ SMALL_SETUPS = ("all_8", "boundaries_6", "fibonacci_6_hash", "poseidon_vm_6")
 FIBV_AIRS = ("fibv_module", "fibv_fibonacci")
 PROFILE_DIR = "pil2_stark_tpu_torch/_build/profile"  # under the checkout, gitignored
 MESH_DIR = "pil2_stark_tpu_torch/_build/mesh"  # the NCCL workers' output, gitignored
+# the recursion path: fibonacci 2^22 / ext 2^25 (LARGE_SETUP's struct, its FRI
+# ending at 4 bits: inner_struct) verified inside a C12 and a C18 machine of
+# blowup 2 and RECURSION_QUERIES queries (no count is set for a C12 in the
+# JAX package but its tests' 8); the front-end's worker writes under
+# RECURSION_DIR (gitignored)
+RECURSION_DIR = "pil2_stark_tpu_torch/_build/recursion"
+RECURSION_QUERIES = 64
+RECURSION_PATHS = {12: "recursion", 18: "recursion_c18"}
+RECURSION_WAIT_S = 1000  # the longest the recursion phase waits on the worker
+# the smallest chain (small and cli phases): fibonacci 2^4 / ext 2^7 with 2
+# queries, its C12 / C18 at 2^11 / 2^10 rows with the JAX tests' 8 queries
+SMALL_CHAIN = {"nBits": 4, "nBitsExt": 7, "nQueries": 2, "verificationHashType": "GL",
+               "steps": [{"nBits": 7}, {"nBits": 3}]}
+SMALL_QUERIES = 8
+WORKERS: list = []  # every process this script starts and has not yet ended
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
 # integer multiply-add rate is half the FP32 FMA rate (67e12 FLOP/s / 2
@@ -396,10 +457,78 @@ def tac_programs():
     return out
 
 
-def phase_build():
+def recursion_programs():
+    """{(machine, publics, program): library} of T1 for the recursion
+    machines: the generated source of a C12 or C18 program depends on its
+    PIL's publics but not on its rows (the sources at 2^10 and 2^18 rows
+    are equal), so those of compressor*._pil_source at 2^10 rows serve the
+    small chain (3 publics), its Aggregate2 (6) and the recursion path (3).
+    Their Q programs take nvcc minutes, so they build with the rest."""
+    from pil2_stark_tpu_torch.compiler import compressor12, compressor18, pil1_parser
+    from pil2_stark_tpu_torch.ops import tac_codegen, torch_tac
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    out = {}
+    for name, mod, publics in (("C12", compressor12, 3), ("C12", compressor12, 6),
+                               ("C18", compressor18, 3)):
+        pil = pil1_parser.compile_pil_source(mod._pil_source(10, publics))
+        s = stark_setup.stark_setup(None, pil, recursion_struct(10, SMALL_QUERIES),
+                                    options={"skipConstTree": True})
+        for which, prog in torch_tac.setup_programs(s["starkInfo"],
+                                                    s["expressionsInfo"]).items():
+            out[(name, publics, which)] = cuda_build.add_generated(
+                tac_codegen.generate(prog).source)
+    return out
+
+
+class RecursionBuild(threading.Thread):
+    """recursion_programs and their nvcc round in a thread of their own:
+    the Q programs take about three minutes of nvcc, more than every other
+    source, and the phases before the small one need none of them."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.libs, self.error, self.seconds, self.joined = {}, None, None, False
+
+    def run(self):
+        from pil2_stark_tpu_torch.utils import cuda_build
+
+        t0 = time.perf_counter()
+        try:
+            self.libs = recursion_programs()
+            cuda_build.build(list(self.libs.values()))
+        except Exception as e:  # re-raised by wait() in the main thread
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def wait(self):
+        """Join the build once, emit its line, raise what it raised."""
+        from pil2_stark_tpu_torch.utils import cuda_build
+
+        if not self.joined:
+            t0 = time.perf_counter()
+            self.join()
+            self.joined = True
+            emit({"phase": "build_recursion", "seconds": self.seconds,
+                  "waited_s": time.perf_counter() - t0,
+                  "per_program_s": {f"{m}/{k}.{w}": cuda_build.build_seconds.get(lib)
+                                    for (m, k, w), lib in self.libs.items()},
+                  "ptxas": {f"T1 {m}/{k}.{w}": ptxas_summary(cuda_build.build_log(lib))
+                            for (m, k, w), lib in self.libs.items()}})
+        if self.error is not None:
+            raise self.error
+
+
+REC_BUILD = RecursionBuild()
+
+
+def phase_build(recursion=True):
     from pil2_stark_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
+    if recursion:
+        REC_BUILD.start()
     tac = tac_programs()
     times = cuda_build.build(list(cuda_build.SOURCES) + [lib for _, lib in tac.values()])
     ptxas = {name: ptxas_summary(cuda_build.build_log(name)) for name in cuda_build.SOURCES}
@@ -595,33 +724,35 @@ def _b1_rows(device):
     """B1 at the shapes of the LARGE_SETUP prove: the first FRI fold (8 rows,
     3·2^22 lanes, inverse) and the two bases of the 2^25 transforms of 3, 2
     and 1 columns (2^12 rows × cols·2^13 lanes, 2 rows × cols·2^24 lanes)."""
-    import torch
-
-    from pil2_stark_tpu_torch.ops import cuda_ntt
-
-    rows = []
     fold_bits = LARGE_BITS - 22
     shapes = [(fold_bits, 3 << 22, True)]
     for cols in (LARGE_COLS, 2, 1):
         shapes += [(12, cols << (LARGE_BITS - 12), False), (1, cols << (LARGE_BITS - 1), False)]
-    for bits, lanes, inverse in shapes:
-        n = 1 << bits
-        x = random_field((n, lanes), 200 + bits, device)
-        err = max_abs_err(cuda_ntt.base_rows(x, bits, inverse),
-                          cuda_ntt.base_rows_plain(x, bits, inverse))
-        row = _kernel_row("base_rows", "pil2_stark_tpu_torch/csrc/ntt.cu",
-                          "pil2_stark_tpu/ops/pallas_ntt.py:519", err,
-                          lambda: cuda_ntt.base_rows(x, bits, inverse),
-                          lambda: cuda_ntt.base_rows_plain(x, bits, inverse),
-                          n * lanes * bits / 2 * IMAD_PER_GL_MUL, 2 * n * lanes * 8,
-                          {"n": n, "lanes": lanes, "inverse": inverse}, LARGE_SETUP)
-        if bits > 5:  # the radix regime's passes (ops/cuda_ntt.py::radix_split)
-            row["ptxas"] = {p: _ptxas(label, "ntt")
-                            for p, label in radix_passes(bits, inverse).items()}
-        rows.append(row)
-        del x
-        torch.cuda.empty_cache()
-    return rows
+    return [_b1_row(device, bits, lanes, inverse, LARGE_SETUP) for bits, lanes, inverse in shapes]
+
+
+def _b1_row(device, bits, lanes, inverse, path):
+    """B1 (base_rows) on a (2^bits, lanes) array against its plain version."""
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_ntt
+
+    n = 1 << bits
+    x = random_field((n, lanes), 200 + bits, device)
+    err = max_abs_err(cuda_ntt.base_rows(x, bits, inverse),
+                      cuda_ntt.base_rows_plain(x, bits, inverse))
+    row = _kernel_row("base_rows", "pil2_stark_tpu_torch/csrc/ntt.cu",
+                      "pil2_stark_tpu/ops/pallas_ntt.py:519", err,
+                      lambda: cuda_ntt.base_rows(x, bits, inverse),
+                      lambda: cuda_ntt.base_rows_plain(x, bits, inverse),
+                      n * lanes * bits / 2 * IMAD_PER_GL_MUL, 2 * n * lanes * 8,
+                      {"n": n, "lanes": lanes, "inverse": inverse}, path)
+    if bits > 5:  # the radix regime's passes (ops/cuda_ntt.py::radix_split)
+        row["ptxas"] = {p: _ptxas(label, "ntt")
+                        for p, label in radix_passes(bits, inverse).items()}
+    del x
+    torch.cuda.empty_cache()
+    return row
 
 
 def _ptxas(label, lib="tac"):
@@ -633,18 +764,20 @@ def _ptxas(label, lib="tac"):
     return hit[0] if hit else None
 
 
-def _tac_rows(device, setup_name, programs):
+def _tac_rows(device, setup_name, programs, setup=None):
     """T1, the kernel generated for each program, against run_plain on
     random canonical inputs of each program at the prove's size; with its
     ptxas counts and nvcc seconds from its own build, and its SASS per row
-    (one trip of the grid-stride loop)."""
+    (one trip of the grid-stride loop).  The programs of the committed
+    setup `setup_name`, or of `setup` (a stark_setup result) on the path
+    named `setup_name`."""
     import torch
 
     from pil2_stark_tpu_torch.ops import tac_codegen, torch_tac
     from pil2_stark_tpu_torch.stark import setup as stark_setup
     from pil2_stark_tpu_torch.utils import cuda_build
 
-    setup = stark_setup.read_setup(setup_name)
+    setup = setup or stark_setup.read_setup(setup_name)
     info = setup["starkInfo"]
     ss = info["starkStruct"]
     rows = []
@@ -703,8 +836,9 @@ def _tac_rows(device, setup_name, programs):
     return rows
 
 
-def _xdiv_row(device, bits, path):
-    """T2 against its plain version with two random opening points."""
+def _xdiv_row(device, bits, path, openings=2):
+    """T2 against its plain version with random opening points (the
+    proves' two by default)."""
     import numpy as np
     import torch
 
@@ -714,7 +848,7 @@ def _xdiv_row(device, bits, path):
     n = 1 << bits
     x = random_field((n,), 400 + bits, device)
     xis = [tuple(int(v) for v in np.random.default_rng(410 + o).integers(0, P, 3, dtype=np.uint64))
-           for o in range(2)]
+           for o in range(openings)]
     err = exact_err(cuda_tac.gl_xdiv(x, xis), stark_device.compute_xdiv_plain(x, xis))
     row = _kernel_row(
         "gl_xdiv", TAC_SRC, "pil2_stark_tpu/stark/device.py:349", err,
@@ -1049,6 +1183,7 @@ def phase_small(device):
             failed.append(f"fibonacci_6_bn128{'_custom' if custom else ''}")
     if failed:
         raise AssertionError(f"small: card and CPU proofs differ or a check failed: {failed}")
+    return small_recursion(device)
 
 
 @contextlib.contextmanager
@@ -1146,19 +1281,18 @@ def fixed_uploads(fixed):
         torch_gl.from_u64 = real_from_u64
 
 
-def phase_prove(device, setup_name, counters):
-    """Prove one committed setup on the card, cold then warm; verify.  The
-    VM's setup is compiled by the port from its PIL source and set up by
-    stark_setup on the card, and must equal the committed one.  Every prove
-    must upload the fixed columns zero times.  Returns the cold prove's
-    launches and its {proof, publics}."""
+def phase_prove(device, setup_name, counters, warm=True):
+    """Prove one committed setup on the card, cold then (with `warm`) warm;
+    verify.  The VM's setup is compiled by the port from its PIL source and
+    set up by stark_setup on the card, and must equal the committed one.
+    Every prove must upload the fixed columns zero times.  Returns the cold
+    prove's launches and its {proof, publics}."""
     import torch
 
     from pil2_stark_tpu_torch.compiler import pil1_parser
     from pil2_stark_tpu_torch.hash import poseidon_gl
     from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
-    from pil2_stark_tpu_torch.ops import cuda_ntt
-    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup, verifier
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
 
     data = stark_setup.read_setup(setup_name)
     compiled = {}
@@ -1192,13 +1326,49 @@ def phase_prove(device, setup_name, counters):
                                        data["verifierInfo"], const_cols.buffer, device=device)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
+    # one all-gadgets prove: its host hints take about 100 s a prove
+    res, out = prove_cold_warm(setup, const_cols.buffer, cm_cols.buffer, publics, prove_device,
+                               counters, warm=warm)
+    library = {"proof": res["proof"], "publics": res["publics"]}
+    if compiled:  # the mesh phase proves the VM again from this setup and these columns
+        library.update(setup=setup, columns=(const_cols, cm_cols, publics))
+    ss = data["starkInfo"]["starkStruct"]
+    phase = {"all": "prove", "fibonacci": "prove_large", "poseidon_vm": "prove_vm"}
+    emit({"phase": phase[data["machine"]],
+          "setup": setup_name, "machine": data["machine"], "n_bits": ss["nBits"],
+          "n_bits_ext": ss["nBitsExt"], "n_queries": ss["nQueries"],
+          "witness_build_s": t_build, "load_setup_s": t_setup, **out,
+          **({"compiled_by_port": compiled} if compiled else {}),
+          "n_columns": {k: v for k, v in data["starkInfo"]["mapSectionsN"].items() if v},
+          **({"final_states_equal_permute": states_ok} if states_ok is not None else {})})
+    del setup, res
+    torch.cuda.empty_cache()
+    if states_ok is False:
+        raise AssertionError(f"the {setup_name} trace is not the permutation")
+    if compiled and not all(compiled["equals_committed"].values()):
+        raise AssertionError(f"the port's {setup_name} setup differs from the committed one: "
+                             f"{compiled['equals_committed']}")
+    check_proves(setup_name, out)
+    return out["launches"], library
+
+
+def prove_cold_warm(setup, fixed, witness, publics, device, counters, warm=True):
+    """A cold prove (and with `warm` a warm one) of a set-up machine on
+    `device`, the kernels' counters zeroed just before the cold prove and
+    read just after it, the fixed-column uploads of each counted; the last
+    proof verified.  Returns (the cold result, {verified, repeatable,
+    cold_s, warm_s, verify_s, peak_device_bytes, phases_*, launches,
+    b1_launches_by_shape, fixed_uploads_per_prove})."""
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_ntt
+    from pil2_stark_tpu_torch.stark import prover, verifier
 
     def run():
         t = time.perf_counter()
-        with fixed_uploads(const_cols.buffer) as uploads:
-            res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
-                               setup["constTree"], (cm_cols.buffer, publics),
-                               device=prove_device)
+        with fixed_uploads(fixed) as uploads:
+            res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], fixed,
+                               setup["constTree"], (witness, publics), device=device)
             torch.cuda.synchronize()
         return res, time.perf_counter() - t, uploads[0]
 
@@ -1208,50 +1378,37 @@ def phase_prove(device, setup_name, counters):
     res, cold, uploads_cold = run()
     launches = {c.__name__: c.launches for c in counters}
     b1 = {f"{n}x{lanes}": k for (n, lanes), k in sorted(cuda_ntt.base_rows.shapes.items())}
-    miscounted = {k: (launches[k], v) for k, v in PROVE_LAUNCHES.items()
-                  if k in launches and launches[k] != v}
-    res_warm, warm, uploads_warm = run()
-    peak = max(res_warm["peakBytes"].values())  # every allocation happens inside a phase
-    same = canon(res["proof"]) == canon(res_warm["proof"])
-    library = {"proof": res["proof"], "publics": res["publics"]}
-    if compiled:  # the mesh phase proves the VM again from this setup and these columns
-        library.update(setup=setup, columns=(const_cols, cm_cols, publics))
+    res_warm, warm_s, uploads_warm, same = res, None, 0, None
+    if warm:
+        res_warm, warm_s, uploads_warm = run()
+        same = canon(res["proof"]) == canon(res_warm["proof"])
     t0 = time.perf_counter()
     ok = verifier.verify(res_warm["proof"], res_warm["publics"], setup["constRoot"],
                          setup["starkInfo"], setup["verifierInfo"])
-    t_verify = time.perf_counter() - t0
-    ss = data["starkInfo"]["starkStruct"]
-    phase = {"all": "prove", "fibonacci": "prove_large", "poseidon_vm": "prove_vm"}
-    emit({"phase": phase[data["machine"]],
-          "setup": setup_name, "machine": data["machine"], "n_bits": ss["nBits"],
-          "n_bits_ext": ss["nBitsExt"], "n_queries": ss["nQueries"],
-          "verified": ok, "repeatable": same, "cold_s": cold, "warm_s": warm,
-          "witness_build_s": t_build, "load_setup_s": t_setup, "verify_s": t_verify,
-          "peak_device_bytes": peak, "phases_warm_s": res_warm["timings"],
-          "phases_cold_s": res["timings"], "phases_peak_bytes": res_warm["peakBytes"],
-          "launches": launches, "b1_launches_by_shape": b1,
-          "fixed_uploads_per_prove": [uploads_cold, uploads_warm],
-          **({"compiled_by_port": compiled} if compiled else {}),
-          "n_columns": {k: v for k, v in data["starkInfo"]["mapSectionsN"].items() if v},
-          **({"final_states_equal_permute": states_ok} if states_ok is not None else {})})
-    del setup, res, res_warm
-    torch.cuda.empty_cache()
-    if not (ok and same) or states_ok is False:
-        raise AssertionError(f"the {setup_name} proof does not verify or is not repeatable, "
-                             f"or its trace is not the permutation")
-    if compiled and not all(compiled["equals_committed"].values()):
-        raise AssertionError(f"the port's {setup_name} setup differs from the committed one: "
-                             f"{compiled['equals_committed']}")
-    if uploads_cold or uploads_warm:
-        raise AssertionError(f"the {setup_name} proves uploaded the fixed columns "
-                             f"{[uploads_cold, uploads_warm]} times")
+    return res, {"verified": ok, "repeatable": same, "cold_s": cold, "warm_s": warm_s,
+                 "verify_s": time.perf_counter() - t0,
+                 # every allocation happens inside a phase
+                 "peak_device_bytes": max(res_warm["peakBytes"].values()),
+                 "phases_warm_s": res_warm["timings"], "phases_cold_s": res["timings"],
+                 "phases_peak_bytes": res_warm["peakBytes"], "launches": launches,
+                 "b1_launches_by_shape": b1,
+                 "fixed_uploads_per_prove": [uploads_cold, uploads_warm]}
+
+
+def check_proves(label, out):
+    """prove_cold_warm's proves verify, are repeatable, upload no fixed
+    column, and launch every kernel (T1 and T2 as PROVE_LAUNCHES says)."""
+    launches = out["launches"]
     zero = [k for k, v in launches.items() if v == 0]
-    if zero:
-        raise AssertionError(f"kernels never launched on the {setup_name} prove: {zero}")
-    if miscounted:
-        raise AssertionError(f"launches (counted, expected) on the {setup_name} prove: "
-                             f"{miscounted}")
-    return launches, library
+    miscounted = {k: (launches[k], v) for k, v in PROVE_LAUNCHES.items() if launches[k] != v}
+    if not out["verified"] or out["repeatable"] is False:
+        raise AssertionError(f"the {label} proof does not verify or is not repeatable")
+    if any(out["fixed_uploads_per_prove"]):
+        raise AssertionError(f"the {label} proves uploaded the fixed columns "
+                             f"{out['fixed_uploads_per_prove']} times")
+    if zero or miscounted:
+        raise AssertionError(f"the {label} prove: kernels never launched {zero}, launches "
+                             f"(counted, expected) {miscounted}")
 
 
 def proof_digest(proof) -> str:
@@ -1677,6 +1834,101 @@ def phase_cli(device, counters, library):
     return launches
 
 
+def cli_recursion(device, counters, library):
+    """The smallest chain through the port's CLI (python -m
+    pil2_stark_tpu_torch, in this process, on the default device), its
+    files under the gitignored CLI_DIR (removed after): `prove --model
+    fibonacci --nbits 4` under SMALL_CHAIN, `pil2circom`, `compressor-setup
+    --cols 12`, `compressor-exec`, then `prove --pil-json/--const/--commit/
+    --publics` of the C12 (launches counted; the proof must equal
+    small_recursion's library proof) and `verify` in a fresh process (exit
+    0); then `buildchelpers` on the VM 2^20 / ext 2^23, read back.  Returns
+    the C12 prove's launches."""
+    import os
+    import shutil
+
+    from pil2_stark_tpu_torch import __main__ as cli
+    from pil2_stark_tpu_torch.compiler import chelpers_bin
+    from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
+    from pil2_stark_tpu_torch.ops import ntt
+    from pil2_stark_tpu_torch.utils import serialization
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, CLI_DIR, "recursion")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    f = {k: os.path.join(d, v) for k, v in (
+        ("inner_ss", "inner_ss.json"), ("fib", "fib"), ("circuit", "circuit"), ("c12", "c12"),
+        ("c12_ss", "c12_ss.json"), ("out", "c12_out"), ("library", "library_proof.json"),
+        ("vm_source", "PoseidonVM.pil"), ("vm_ss", "vm_ss.json"),
+        ("chelpers", "vm.chelpers.bin"))}
+    secs, checks = {}, {}
+    try:
+        serialization.dump_json(SMALL_CHAIN, f["inner_ss"])
+        serialization.dump_json(library["ss"], f["c12_ss"])
+        c12 = f["c12"]
+        steps = [
+            ("prove_inner", ["prove", "--model", "fibonacci", "--nbits", "4", "--starkstruct",
+                             f["inner_ss"], "--tmp", f["fib"]]),
+            ("pil2circom", ["pil2circom", "--starkinfo", f"{f['fib']}/starkinfo.json",
+                            "--verifierinfo", f"{f['fib']}/verifierinfo.json",
+                            "--verkey", f"{f['fib']}/verkey.json", "-o", f["circuit"]]),
+            ("compressor-setup", ["compressor-setup", "--circom-dir", f["circuit"], "--inputs",
+                                  f"{f['fib']}/zkin.json", "--out-prefix", c12, "--cols", "12"]),
+            ("compressor-exec", ["compressor-exec", "--exec", f"{c12}.exec", "--wtns",
+                                 f"{c12}.wtns.json", "--meta", f"{c12}.meta.json",
+                                 "--commit", f"{c12}.commit.npy", "--publics",
+                                 f"{c12}.publics.json"]),
+            ("prove_c12", ["prove", "--pil-json", f"{c12}.pil.json", "--const",
+                           f"{c12}.const.npy", "--commit", f"{c12}.commit.npy", "--publics",
+                           f"{c12}.publics.json", "--starkstruct", f["c12_ss"],
+                           "--tmp", f["out"]]),
+        ]
+        for name, argv in steps:
+            if name == "prove_c12":
+                for c in counters:
+                    c.launches = 0
+            t0 = time.perf_counter()
+            cli.main(argv)
+            secs[name] = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        # transforms of up to 2^12 points are one B3 pass (ops/ntt.py::planar_ntt)
+        off_path = {"level_planar"} if ntt.split_bits(library["ss"]["nBitsExt"]) == 0 else set()
+        serialization.dump_proof(library["proof"], f["library"])
+        with open(os.path.join(f["out"], "proof.json"), "rb") as a, \
+                open(f["library"], "rb") as b:
+            checks["c12_proof_equals_library"] = a.read() == b.read()
+        runs = _cli_runs({"verify_c12": _verify_args(f["out"])}, root)
+        code, secs["verify_c12"], last = runs["verify_c12"]
+        checks["verify_c12_exits_0"] = code == 0
+
+        # buildchelpers on the VM 2^20
+        with open(f["vm_source"], "w") as src:
+            src.write(poseidon_vm.pil_source(VM_N_BITS))
+        serialization.dump_json(gadgets.stark_struct(VM_N_BITS, VM_BITS, n_queries=32), f["vm_ss"])
+        t0 = time.perf_counter()
+        cli.main(["buildchelpers", "--pil", f["vm_source"], "--starkstruct", f["vm_ss"],
+                  "--chelpers", f["chelpers"]])
+        secs["buildchelpers"] = time.perf_counter() - t0
+        back = chelpers_bin.read_chelpers_file(f["chelpers"])
+        chelpers = {"bytes": os.path.getsize(f["chelpers"]),
+                    "expressions": len(back["expsInfo"]), "im_pols": len(back["imPolsInfo"])}
+        checks["chelpers_read_back"] = chelpers["expressions"] > 0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "cli", "chain": "recursion", "seconds": time.perf_counter() - t_phase,
+          "subcommand_s": secs, "launches": launches, "not_on_path": sorted(off_path),
+          "checks": checks, "chelpers": chelpers, "verify_last_line": last})
+    failed = [k for k, v in checks.items() if not v]
+    zero = [k for k, v in launches.items() if v == 0 and k not in off_path]
+    miscounted = {k: launches[k] for k, v in PROVE_LAUNCHES.items() if launches.get(k) != v}
+    if failed or zero or miscounted:
+        raise AssertionError(f"cli recursion: checks failed {failed}, kernels never launched "
+                             f"{zero}, launches off {miscounted}")
+    return launches
+
+
 def device_ops(trace, top=12) -> dict:
     """Device time by operation in a torch.profiler Chrome trace: the
     `top` kernels by total time, and the memcpy/memset totals (us)."""
@@ -1750,6 +2002,395 @@ def phase_profile(device, names):
             raise AssertionError(f"{name}: no device activity in the profiled prove")
 
 
+# ---------------------------------------------------------------------------
+# the Goldilocks recursion tier: a proof verified inside a C12 / C18 machine
+
+
+def recursion_struct(n_bits, n_queries):
+    """A recursive machine's starkStruct: blowup 2, FRI steps of 4 bits
+    down to 2^4 or less."""
+    return {"nBits": n_bits, "nBitsExt": n_bits + 1, "nQueries": n_queries,
+            "verificationHashType": "GL",
+            "steps": [{"nBits": b} for b in range(n_bits + 1, 0, -4)]}
+
+
+def inner_struct():
+    """LARGE_SETUP's starkStruct without its FRI steps of fewer bits than
+    the blowup: the circuit of either package demands a zero final
+    polynomial there, where the verifier lets a constant through
+    (pil2circom.py gen_verify_final_pol; ROADMAP hazard 8)."""
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
+
+    ss = json.loads(json.dumps(stark_setup.read_setup(LARGE_SETUP)["starkInfo"]["starkStruct"]))
+    ss["steps"] = [s for s in ss["steps"] if s["nBits"] >= ss["nBitsExt"] - ss["nBits"]]
+    return ss
+
+
+def fibonacci_proof(n_bits, ss, device, inputs=(1, 2)):
+    """(setup, result, zkin) of the fibonacci machine at 2^n_bits rows under
+    ss, compiled by the port, set up and proved on `device`; the zkin
+    carries the publics."""
+    from pil2_stark_tpu_torch.compiler import pil1_parser
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
+    from pil2_stark_tpu_torch.utils import proof2zkin
+
+    pil = pil1_parser.compile_pil_source(fibonacci.pil_source(n_bits))
+    pil["name"] = "Fibonacci"
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 1 << n_bits, list(inputs))
+    s = stark_setup.stark_setup(const_cols.buffer, pil, json.loads(json.dumps(ss)), device=device)
+    res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["constTree"],
+                       (cm_cols.buffer, publics), device=device)
+    zkin = canon(proof2zkin.proof2zkin(res["proof"], s["starkInfo"]))
+    zkin["publics"] = [int(p) for p in publics]
+    return s, res, zkin
+
+
+def compress(files, entry, zkin, cols=(12, 18)):
+    """The port's circom front-end on a circuit and its inputs, check(),
+    then a compressor machine of it for each of `cols`: (stats, {cols:
+    {pil, const, cm, publics, n_bits, bad_row, setup_s, exec_s}}).
+    bad_row is a row whose wire 3 a custom gate uses (the corrupted wire
+    of tests/test_compressor12.py:63)."""
+    import collections
+
+    import numpy as np
+
+    from pil2_stark_tpu_torch.compiler import circom_front, compressor12, compressor18
+
+    t0 = time.perf_counter()
+    cc = circom_front.compile_and_witness(files, entry, zkin)
+    front_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not cc.check():
+        raise AssertionError(f"{entry}: the circuit's constraints fail on its inputs")
+    check_s = time.perf_counter() - t0
+    template = {i: g["template"] for i, g in enumerate(cc.custom_gates)}
+    stats = {"entry": entry, "signals": cc.n_vars, "constraints": len(cc.constraints),
+             "custom_gate_uses": dict(collections.Counter(template[u["id"]]
+                                                          for u in cc.custom_uses)),
+             "n_publics": cc.n_outputs + cc.n_pub_inputs, "front_end_s": front_s,
+             "check_s": check_s}
+    machines = {}
+    for c in cols:
+        mod = compressor12 if c == 12 else compressor18
+        t0 = time.perf_counter()
+        s = mod.setup(cc)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cm = mod.exec_witness(cc.witness, s["plonkAdditions"], s["sMap"], s["nBits"])
+        exec_s = time.perf_counter() - t0
+        machines[c] = {"pil": s["pil"], "const": s["constBuffer"], "cm": cm,
+                       "publics": [int(x) for x in cc.witness[1:1 + s["nPublics"]]],
+                       "n_bits": s["nBits"], "setup_s": setup_s, "exec_s": exec_s,
+                       "bad_row": int(np.argmax(s["sMap"][3][s["nPublics"] // 12 + 1:])) + 1}
+    return stats, machines
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch's multi-threaded int64 ops on small CPU tensors are slow: the
+    CPU proves of the recursion machines run on one thread."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _prove_small_machine(m, ss, device):
+    """(setup, result) of a small recursion machine set up and proved on
+    `device`."""
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
+
+    s = stark_setup.stark_setup(m["const"], m["pil"], json.loads(json.dumps(ss)), device=device)
+    res = prover.prove(s["starkInfo"], s["expressionsInfo"], m["const"], s["constTree"],
+                       (m["cm"], m["publics"]), device=device)
+    return s, res
+
+
+def small_recursion(device):
+    """The smallest chain of the recursion tier, on the card and on the CPU:
+    fibonacci 2^4 / ext 2^7 with 2 queries (equal proofs), its verifier
+    circuit through the port's front-end, the C12 and C18 machines of it
+    (blowup 2, SMALL_QUERIES queries), and the C12 of the vadcop Aggregate2
+    circuit of two such proofs; each machine's card proof must equal the
+    CPU's byte for byte and verify.  Returns the library C12 proof and its
+    struct for the cli phase."""
+    from pil2_stark_tpu_torch.compiler import pil2circom, vadcop
+    from pil2_stark_tpu_torch.stark import verifier
+
+    REC_BUILD.wait()
+    failed = []
+    t0 = time.perf_counter()
+    inner = {}
+    for dev in (device, "cpu"):
+        with one_thread():
+            inner[dev] = fibonacci_proof(4, SMALL_CHAIN, dev)
+    s, res, zkin = inner[device]
+    same = canon(res["proof"]) == canon(inner["cpu"][1]["proof"])
+    root = [int(v) for v in s["constRoot"]]
+    _, _, zkin_b = fibonacci_proof(4, SMALL_CHAIN, device, inputs=(3, 5))
+    emit({"phase": "small", "recursion": "inner", "setup": "fibonacci 2^4 / ext 2^7",
+          "identical": same, "seconds": time.perf_counter() - t0})
+    if not same:
+        failed.append("inner")
+    jobs = [("verifier", pil2circom.emit_circuit_files(root, s["starkInfo"], s["verifierInfo"]),
+             "verifier.circom", zkin, (12, 18)),
+            ("aggregate2", vadcop.emit_aggregation_files(root, s["starkInfo"], s["verifierInfo"]),
+             "aggregate2.circom", vadcop.aggregate2_zkin(zkin, zkin_b, [0, 0, 0, 0], [root]),
+             (12,))]
+    library = None
+    for label, files, entry, inputs, cols in jobs:
+        stats, machines = compress(files, entry, inputs, cols)
+        if label == "aggregate2" and machines[12]["publics"] != zkin["publics"] + zkin_b["publics"]:
+            failed.append("aggregate2 publics")
+        for c, m in machines.items():
+            t0 = time.perf_counter()
+            ss = recursion_struct(m["n_bits"], SMALL_QUERIES)
+            s_gpu, r_gpu = _prove_small_machine(m, ss, device)
+            with one_thread():
+                s_cpu, r_cpu = _prove_small_machine(m, ss, "cpu")
+            same = (canon(r_gpu["proof"]) == canon(r_cpu["proof"])
+                    and canon(s_gpu["constRoot"]) == canon(s_cpu["constRoot"]))
+            ok = verifier.verify(r_gpu["proof"], r_gpu["publics"], s_gpu["constRoot"],
+                                 s_gpu["starkInfo"], s_gpu["verifierInfo"])
+            emit({"phase": "small", "recursion": f"{label} C{c}", **stats, "n_bits": m["n_bits"],
+                  "n_columns": {k: v for k, v in s_gpu["starkInfo"]["mapSectionsN"].items() if v},
+                  "q_deg": s_gpu["starkInfo"]["qDeg"], "stark_struct": ss,
+                  "identical": same, "verified": ok, "seconds": time.perf_counter() - t0})
+            if not (same and ok):
+                failed.append(f"{label} C{c}")
+            if label == "verifier" and c == 12:
+                library = {"ss": ss, "proof": r_gpu["proof"], "publics": r_gpu["publics"]}
+    if failed:
+        raise AssertionError(f"small recursion: card and CPU differ or a check failed: {failed}")
+    return library
+
+
+def recursion_worker(d):
+    """The host half of the recursion path, in a process of its own while
+    the card's other phases go on: pil2circom on the inner proof's setup,
+    the circom front-end on its zkin and check(), then the C12 and C18
+    machines, pickled to d/chain.pkl, with one JSON line of stats (the
+    peak RSS up to here among them); then a debug prove on the default
+    device of the C12's witness with one corrupted wire, which must find
+    errors (its constraint check runs on the host for minutes), and a
+    second JSON line with them."""
+    import os
+    import pickle
+    import resource
+
+    from pil2_stark_tpu_torch.compiler import pil2circom
+
+    with open(os.path.join(d, "inner.json")) as f:
+        inner = json.load(f)
+    t0 = time.perf_counter()
+    files = pil2circom.emit_circuit_files(inner["constRoot"], inner["starkInfo"],
+                                          inner["verifierInfo"])
+    p2c_s = time.perf_counter() - t0
+    stats, machines = compress(files, "verifier.circom", inner["zkin"])
+    stats.update(pil2circom_s=p2c_s, circuit_bytes=sum(len(t) for t in files.values()),
+                 compressor={c: {k: m[k] for k in ("n_bits", "setup_s", "exec_s", "bad_row")}
+                             for c, m in machines.items()},
+                 peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+    with open(os.path.join(d, "chain.pkl"), "wb") as f:
+        pickle.dump({"stats": stats, "machines": machines}, f, protocol=4)
+    emit(stats)
+
+    from pil2_stark_tpu_torch.compiler import pilinfo
+    from pil2_stark_tpu_torch.stark import prover
+
+    m = machines[12]
+    t0 = time.perf_counter()
+    dbg = pilinfo.pil_info(m["pil"], True, {}, {"debug": True})
+    bad = m["cm"].copy()
+    bad[m["bad_row"], 3] = (int(bad[m["bad_row"], 3]) + 1) % P
+    errors = prover.prove(dbg["pilInfo"], dbg["expressionsInfo"], m["const"], None,
+                          (bad, m["publics"]), debug=True, device=None)
+    emit({"debug": {"machine": "C12", "row": m["bad_row"], "column": 3,
+                    "corrupted_wire_errors": len(errors), "first_error": errors[:1],
+                    "debug_s": time.perf_counter() - t0}})
+    return 0
+
+
+def start_recursion(device):
+    """The recursion path's inner proof on the card: fibonacci 2^22 / ext
+    2^25 with 32 queries (inner_struct), compiled by the port and set up
+    and proved on the default device, verified; then the host half of the
+    chain (recursion_worker) starts in a process of its own.  Returns the
+    running worker."""
+    import os
+    import shutil
+
+    import torch
+
+    from pil2_stark_tpu_torch.stark import verifier
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), RECURSION_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    s, res, zkin = fibonacci_proof(LARGE_N_BITS, inner_struct(), None)
+    torch.cuda.synchronize()
+    setup_prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = verifier.verify(res["proof"], res["publics"], s["constRoot"], s["starkInfo"],
+                         s["verifierInfo"])
+    verify_s = time.perf_counter() - t0
+    with open(os.path.join(d, "inner.json"), "w") as f:
+        json.dump({"constRoot": [int(v) for v in s["constRoot"]], "starkInfo": s["starkInfo"],
+                   "verifierInfo": s["verifierInfo"], "zkin": zkin}, f)
+    ss = s["starkInfo"]["starkStruct"]
+    emit({"phase": "recursion", "step": "inner", "machine": "fibonacci", "n_bits": ss["nBits"],
+          "n_bits_ext": ss["nBitsExt"], "n_queries": ss["nQueries"],
+          "fri_steps": [st["nBits"] for st in ss["steps"]], "publics": zkin["publics"],
+          "verified": ok, "setup_and_prove_s": setup_prove_s, "prove_phases_s": res["timings"],
+          "verify_s": verify_s})
+    del s, res
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the recursion path's inner proof does not verify")
+    logs = (open(os.path.join(d, "worker.out"), "w+"), open(os.path.join(d, "worker.err"), "w+"))
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--recursion-worker", d],
+                            stdout=logs[0], stderr=logs[1])
+    WORKERS.append(proc)
+    return {"proc": proc, "dir": d, "logs": logs, "started": time.perf_counter()}
+
+
+def phase_recursion(device, counters, started):
+    """The recursion path at size: the C12 and C18 machines whose circuit
+    verifies the inner proof (recursion_worker's output), compiled by the
+    port's pil_info under recursion_struct(n, RECURSION_QUERIES), their six
+    T1 programs already built (RecursionBuild), set up on the default device
+    (stark_setup = this compile + load_setup); each kernel of the path held
+    against its plain version at the machines' shapes; the C12 proved cold
+    and warm, then once more under the profiler (idle share); the C18
+    proved once; every proof verified, no fixed-column upload.  The
+    worker's debug prove of the C12's corrupted witness must have found
+    errors.  Returns the kernel rows and {path: launches}."""
+    import os
+    import pickle
+    import resource
+
+    import torch
+
+    from pil2_stark_tpu_torch.ops import tac_codegen, torch_tac
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
+    from pil2_stark_tpu_torch.utils import cuda_build, timing
+
+    t_phase = time.perf_counter()
+    REC_BUILD.wait()
+    proc, d = started["proc"], started["dir"]
+    try:
+        proc.wait(timeout=RECURSION_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in started["logs"]:
+            f.seek(0)
+    out, err = (f.read() for f in started["logs"])
+    for f in started["logs"]:
+        f.close()
+    waited = time.perf_counter() - t_phase
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 2:
+        raise AssertionError(f"the recursion worker failed (exit {proc.returncode}): {err[-3000:]}")
+    emit({"phase": "recursion", "step": "front_end", "worker_s": time.perf_counter()
+          - started["started"], "waited_s": waited, **lines[0]})
+    debug = lines[1]["debug"]
+    emit({"phase": "recursion", "step": "debug", **debug})
+    if not debug["corrupted_wire_errors"]:
+        raise AssertionError("the C12's debug prove found no error in a corrupted wire")
+    with open(os.path.join(d, "chain.pkl"), "rb") as f:
+        machines = pickle.load(f)["machines"]
+
+    setups, steps = {}, {}
+    for c, m in machines.items():
+        t0 = time.perf_counter()
+        setups[c] = stark_setup.stark_setup(m["const"], m["pil"],
+                                            recursion_struct(m["n_bits"], RECURSION_QUERIES),
+                                            options={"skipConstTree": True})
+        steps[c] = {"compile_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    libs = [cuda_build.add_generated(tac_codegen.generate(prog).source)
+            for s in setups.values()
+            for prog in torch_tac.setup_programs(s["starkInfo"], s["expressionsInfo"]).values()]
+    cuda_build.build(libs)
+    t1_build_s = time.perf_counter() - t0
+    for c, m in machines.items():
+        t0 = time.perf_counter()
+        s = setups[c]
+        setups[c] = stark_setup.load_setup(s["starkInfo"], s["expressionsInfo"],
+                                           s["verifierInfo"], m["const"], device=None)
+        torch.cuda.synchronize()
+        steps[c]["load_setup_s"] = time.perf_counter() - t0
+    emit({"phase": "recursion", "step": "stark_setup", "t1_build_s": t1_build_s,
+          "t1_nvcc_s": {lib: cuda_build.build_seconds.get(lib) for lib in libs},
+          "seconds": steps})
+
+    rows, launches = [], {}
+    for c, m in machines.items():
+        path = RECURSION_PATHS[c]
+        info = setups[c]["starkInfo"]
+        ss = info["starkStruct"]
+        n = ss["nBits"]
+        widest = max(v for k, v in info["mapSectionsN"].items() if k.startswith("cm"))
+        # B2/B3 at the stage-1 iNTT and at the widest LDE's NTT on the
+        # blowup-2 domain, B4 at the trees' leaf batch, B1 at the first FRI
+        # fold, T1 on the machine's three programs, T2 at 2^(n+1)
+        rows += _ntt_rows(device, n, c, True, path)
+        rows += _ntt_rows(device, n + 1, widest, False, path)
+        rows.append(_poseidon_row(device, 1 << (n + 1), path))
+        fold = ss["steps"][0]["nBits"] - ss["steps"][1]["nBits"]
+        rows.append(_b1_row(device, fold, 3 << ss["steps"][1]["nBits"], True, path))
+        rows += _tac_rows(device, path, ("imPols", "q", "fri"), setup=setups[c])
+        rows.append(_xdiv_row(device, n + 1, path, openings=len(info["openingPoints"])))
+    for r in rows:
+        emit({"phase": "recursion", **r})
+    bad = [(r["name"], r["path"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at the recursion "
+                             f"shapes: {bad}")
+
+    for c, m in machines.items():
+        path = RECURSION_PATHS[c]
+        setup = setups[c]
+        info = setup["starkInfo"]
+        _, out = prove_cold_warm(setup, m["const"], m["cm"], m["publics"], None, counters,
+                                 warm=c == 12)
+        check_proves(f"C{c}", out)
+        launches[path] = out["launches"]
+        extra = {}
+        if c == 12:
+            # the card's idle share over one more warm prove
+            prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PROFILE_DIR, path)
+            res = prover.prove(info, setup["expressionsInfo"], m["const"], setup["constTree"],
+                               (m["cm"], m["publics"]), device=None, profile_dir=prof_dir)
+            with open(res["trace"]) as f:
+                trace = json.load(f)
+            extra["idle_share"] = timing.idle_share(trace)
+            extra["idle_share_by_phase"] = {
+                name: {"s": secs, "idle_share": timing.idle_share(trace, window=name)}
+                for name, secs in res["timings"].items()
+                if secs > 0.02 and not name.endswith(".upload")}
+            extra["profiled_phases_s"] = res["timings"]
+            extra["device"] = device_ops(trace)
+            del res, trace
+        emit({"phase": "recursion", "step": "prove", "path": path, "machine": f"C{c}",
+              "n_bits": info["starkStruct"]["nBits"], "stark_struct": info["starkStruct"],
+              "n_columns": {k: v for k, v in info["mapSectionsN"].items() if v},
+              "q_deg": info["qDeg"], "n_publics": info["nPublics"], **steps[c], **out, **extra})
+        torch.cuda.empty_cache()
+    emit({"phase": "recursion", "seconds": time.perf_counter() - t_phase,
+          "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024})
+    return rows, launches
+
+
 def prove_counters():
     """The wrappers of every kernel the prove path launches (B1–B4, T1, T2)."""
     from pil2_stark_tpu_torch.hash import cuda_poseidon
@@ -1767,13 +2408,15 @@ def card_line():
 
 
 def main(argv):
+    if argv[:1] == ["--recursion-worker"]:  # no torch: the host half of the chain
+        return recursion_worker(argv[1])
     import torch
 
     if argv[:1] == ["--mesh-worker"]:
         return mesh_worker(*argv[1:])
-    only_mesh = argv == ["--only", "mesh"]
-    if argv and not only_mesh:
-        print("usage: chip_smoke.py [--only mesh]", file=sys.stderr)
+    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only not in ("mesh", "recursion"):
+        print("usage: chip_smoke.py [--only mesh|recursion]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1786,24 +2429,15 @@ def main(argv):
 
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase_build()
-    rows, tool_rows, launches = [], [], {}
-    if not only_mesh:
-        phase_compile()
-        rows = phase_kernels(device)
-        tool_rows, launches = phase_tools(device, rows)
-        phase_small(device)
-        phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
-    library = {}
-    for name in (VM_SETUP,) if only_mesh else (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP):
-        launches[name], library[name] = phase_prove(device, name, counters)
-    mesh_rows, launches["mesh"] = phase_mesh(device, counters, library[VM_SETUP])
-    rows += mesh_rows
-    del library[VM_SETUP]["setup"], library[VM_SETUP]["columns"]
-    torch.cuda.empty_cache()
-    if not only_mesh:
-        launches["cli"] = phase_cli(device, counters, library[VM_SETUP])
-        phase_profile(device, (VM_SETUP, LARGE_SETUP))
+    try:
+        rows, tool_rows, launches = run_phases(device, counters, only)
+    finally:
+        for proc in WORKERS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if REC_BUILD.is_alive():  # its nvcc processes end on their own
+            REC_BUILD.join()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     names = {"base_rows": "base_rows", "level_planar": "level_planar",
@@ -1820,6 +2454,46 @@ def main(argv):
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def run_phases(device, counters, only):
+    """Every phase in order (or those of `--only mesh|recursion`): (kernel
+    rows, tool rows, {path: launches})."""
+    import torch
+
+    phase_build(recursion=only != "mesh")
+    rows, tool_rows, launches = [], [], {}
+    if only == "recursion":
+        started = start_recursion(device)
+        launches["cli_recursion"] = cli_recursion(device, counters, small_recursion(device))
+        rows, more = phase_recursion(device, counters, started)
+        launches.update(more)
+        return rows, tool_rows, launches
+    if only is None:
+        phase_compile()
+        rows = phase_kernels(device)
+        # the recursion path's inner proof, then its host half runs beside
+        # the phases below until phase_recursion
+        started = start_recursion(device)
+        tool_rows, launches = phase_tools(device, rows)
+        small_library = phase_small(device)
+        phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
+    library = {}
+    for name in (VM_SETUP,) if only else (f"all_{N_BITS}", LARGE_SETUP, VM_SETUP):
+        launches[name], library[name] = phase_prove(device, name, counters,
+                                                    warm=name != f"all_{N_BITS}")
+    mesh_rows, launches["mesh"] = phase_mesh(device, counters, library[VM_SETUP])
+    rows += mesh_rows
+    del library[VM_SETUP]["setup"], library[VM_SETUP]["columns"]
+    torch.cuda.empty_cache()
+    if only is None:
+        launches["cli"] = phase_cli(device, counters, library[VM_SETUP])
+        launches["cli_recursion"] = cli_recursion(device, counters, small_library)
+        phase_profile(device, (VM_SETUP, LARGE_SETUP))
+        more_rows, more = phase_recursion(device, counters, started)
+        rows += more_rows
+        launches.update(more)
+    return rows, tool_rows, launches
 
 
 if __name__ == "__main__":

@@ -10,14 +10,25 @@ src/main_*.js entry points:
   prove            setup artifacts + witness -> proof.json / zkin.json / publics
   verify           proof + verkey -> accept (exit 0) / reject (exit 1)
   pilverify        debug constraint check of a witness (no commitments)
+  buildchelpers    PIL + starkstruct -> .chelpers.bin (binary TAC streams)
+
+The Goldilocks recursion tier (main_pil2circom.js,
+compressor/main_compressor_setup.js, compressor/main_compressor_exec.js):
+
+  pil2circom       starkinfo + verkey -> verifier circuit files
+  compressor-setup circuit + zkin -> C12/C18 pil/const/exec/witness files
+  compressor-exec  exec + witness -> committed-polynomial buffer + publics
+
+so a proof is verified inside a C12 or C18 machine that `prove
+--pil-json/--const/--commit/--publics` proves.
 
 Every file equals the JAX package's for the same arguments.  ``--device``
 takes the place of the JAX CLI's ``--backend``: by default the card
 (``prove``, ``buildconsttree`` and ``pilverify`` raise when there is none),
 ``--device cpu`` runs the kernels' plain versions.  ``buildconsttree``
 extends and Merkelizes on the device, as stark.setup.load_setup does.
-The recursion subcommands (buildchelpers, pil2circom, compressor, final,
-fflonk) are not ported yet.
+The BN128 tier (a BN128 verifier circuit, final-setup/-exec, fflonk*,
+export*) is not ported yet: ``pil2circom`` refuses a BN128 starkinfo.
 
 Artifact containers are the JAX package's own formats (.npy for u64
 buffers, JSON with stringified big ints, the PSTC consts container).
@@ -102,6 +113,22 @@ def cmd_genstarkinfo(args):
     serialization.dump_json(out["expressionsInfo"], args.expressionsinfo)
     serialization.dump_json(out["verifierInfo"], args.verifierinfo)
     print(f"wrote {args.starkinfo}, {args.expressionsinfo}, {args.verifierinfo}")
+
+
+def cmd_buildchelpers(args):
+    """main_buildchelpers.js: emit the .chelpers.bin artifact (binary TAC
+    streams for pil2-stark-js's external C++ prover)."""
+    from .compiler.chelpers_bin import write_chelpers_file
+    from .compiler.pilinfo import pil_info
+
+    pil, pil2 = _compile_pil(args)
+    ss = _stark_struct(args)
+    out = pil_info(pil, stark=True, stark_struct=ss, pil2=pil2)
+    built = write_chelpers_file(args.chelpers, out["pilInfo"],
+                                out["expressionsInfo"])
+    print(f"wrote {args.chelpers} ({len(built['opsUsed'])} ops used, "
+          f"{len(built['expsInfo'])} expressions, "
+          f"{len(built['constraintsInfo'])} constraints)")
 
 
 def cmd_prove(args):
@@ -221,6 +248,107 @@ def cmd_pilverify(args):
 
 
 # ---------------------------------------------------------------------------
+# the Goldilocks recursion tier (main_pil2circom.js, compressor/*)
+
+
+def _intify(obj):
+    """zkin/witness JSONs carry big ints as strings; restore them."""
+    if isinstance(obj, str) and (obj.isdigit()
+                                 or (obj[:1] == "-" and obj[1:].isdigit())):
+        return int(obj)
+    if isinstance(obj, list):
+        return [_intify(x) for x in obj]
+    if isinstance(obj, dict):
+        return {k: _intify(v) for k, v in obj.items()}
+    return obj
+
+
+def _read_circom_dir(path: str) -> dict:
+    files = {}
+    for name in os.listdir(path):
+        if name.endswith(".circom"):
+            with open(os.path.join(path, name)) as f:
+                files[name] = f.read()
+    if not files:
+        raise SystemExit(f"no .circom files in {path}")
+    return files
+
+
+def cmd_pil2circom(args):
+    """main_pil2circom.js: starkinfo + verifier info + verkey -> verifier
+    circuit files (the GL gadget set; a BN128 starkinfo is refused)."""
+    from .compiler import pil2circom
+    from .utils import serialization
+
+    stark_info = serialization.load_json(args.starkinfo)
+    verifier_info = serialization.load_json(args.verifierinfo)
+    const_root = serialization.load_verkey(args.verkey)
+    os.makedirs(args.out, exist_ok=True)
+    files = pil2circom.emit_circuit_files(const_root, stark_info, verifier_info)
+    for name, text in files.items():
+        with open(os.path.join(args.out, name), "w") as f:
+            f.write(text)
+    print(f"wrote {len(files)} circuit files to {args.out}")
+
+
+def cmd_compressor_setup(args):
+    """compressor/main_compressor_setup.js (C12 or C18 by --cols): compile
+    the circuit with the circom front-end (compiler and witness calculator
+    in one), lay out the plonkish machine, write pil/const/exec/witness/
+    meta."""
+    from .compiler import circom_front as cf
+    from .compiler import compressor12, compressor18
+    from .utils import serialization
+
+    files = _read_circom_dir(args.circom_dir)
+    inputs = _intify(serialization.load_json(args.inputs))
+    cc = cf.compile_and_witness(files, args.entry, inputs)
+    if not cc.check():
+        raise SystemExit("circuit constraint check failed on these inputs")
+    options = {}
+    if args.force_nbits:
+        options["forceNBits"] = args.force_nbits
+    mod = compressor18 if args.cols == 18 else compressor12
+    s = mod.setup(cc, options=options)
+
+    pfx = args.out_prefix
+    serialization.dump_json(
+        json.loads(json.dumps(s["pil"], default=str)), pfx + ".pil.json"
+    )
+    np.save(pfx + ".const.npy", s["constBuffer"])
+    compressor12.write_exec_file(pfx + ".exec", s["plonkAdditions"], s["sMap"])
+    serialization.dump_json(
+        [str(int(v)) for v in cc.witness], pfx + ".wtns.json"
+    )
+    serialization.dump_json(
+        {"nBits": s["nBits"], "nPublics": s["nPublics"],
+         "cols": args.cols}, pfx + ".meta.json"
+    )
+    print(f"wrote {pfx}.pil.json, {pfx}.const.npy, {pfx}.exec, "
+          f"{pfx}.wtns.json, {pfx}.meta.json "
+          f"(N=2^{s['nBits']}, {s['nPublics']} publics)")
+
+
+def cmd_compressor_exec(args):
+    """compressor/main_compressor_exec.js: exec + witness -> committed
+    buffer (+ publics)."""
+    from .compiler import compressor12, compressor18
+    from .utils import serialization
+
+    meta = serialization.load_json(args.meta)
+    cols = meta.get("cols", 12)
+    adds, smap = compressor12.read_exec_file(args.exec_file, n_cols=cols)
+    wtns = [int(x) for x in serialization.load_json(args.wtns)]
+    mod = compressor18 if cols == 18 else compressor12
+    cm = mod.exec_witness(wtns, adds, smap, meta["nBits"])
+    np.save(args.commit, cm)
+    serialization.dump_json(
+        [str(w) for w in wtns[1:1 + meta["nPublics"]]], args.publics
+    )
+    print(f"wrote {args.commit}, {args.publics}")
+
+
+# ---------------------------------------------------------------------------
 # split setup pipeline (main_preparepil.js / main_genpilcode.js /
 # main_calculateimpols.js)
 
@@ -319,6 +447,11 @@ def main(argv=None):
     sp.add_argument("--verifierinfo", default="verifierinfo.json")
     sp.set_defaults(fn=cmd_genstarkinfo)
 
+    sp = sub.add_parser("buildchelpers")
+    common(sp)
+    sp.add_argument("--chelpers", default="machine.chelpers.bin")
+    sp.set_defaults(fn=cmd_buildchelpers)
+
     sp = sub.add_parser("preparepil")
     common(sp)
     sp.add_argument("-o", "--out", default="preparedpil.json")
@@ -381,6 +514,31 @@ def main(argv=None):
     sp.add_argument("--commit")
     sp.add_argument("--publics")
     sp.set_defaults(fn=cmd_pilverify)
+
+    sp = sub.add_parser("pil2circom")
+    sp.add_argument("--starkinfo", required=True)
+    sp.add_argument("--verifierinfo", required=True)
+    sp.add_argument("--verkey", required=True)
+    sp.add_argument("-o", "--out", default="circuit")
+    sp.set_defaults(fn=cmd_pil2circom)
+
+    sp = sub.add_parser("compressor-setup")
+    sp.add_argument("--circom-dir", dest="circom_dir", required=True)
+    sp.add_argument("--entry", default="verifier.circom")
+    sp.add_argument("--inputs", required=True,
+                    help="circuit inputs JSON (e.g. the zkin file)")
+    sp.add_argument("--out-prefix", dest="out_prefix", required=True)
+    sp.add_argument("--force-nbits", dest="force_nbits", type=int)
+    sp.add_argument("--cols", type=int, default=12, choices=[12, 18])
+    sp.set_defaults(fn=cmd_compressor_setup)
+
+    sp = sub.add_parser("compressor-exec")
+    sp.add_argument("--exec", dest="exec_file", required=True)
+    sp.add_argument("--wtns", required=True)
+    sp.add_argument("--meta", required=True)
+    sp.add_argument("--commit", required=True)
+    sp.add_argument("--publics", required=True)
+    sp.set_defaults(fn=cmd_compressor_exec)
 
     args = p.parse_args(argv)
     args.fn(args)

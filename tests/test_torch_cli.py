@@ -249,6 +249,77 @@ def test_buildconsttree_root_is_the_setup_root(tree_dirs, model_dirs):
     assert root == serialization.load_verkey(str(model_dirs["port"] / "verkey.json"))
 
 
+# -- buildchelpers -------------------------------------------------------------
+
+
+def test_buildchelpers_file_equals_jax(tmp_path):
+    ss = _w(tmp_path / "ss.json", SS4)
+    dirs = _both(tmp_path, lambda d: ["buildchelpers", "--model", "fibonacci", "--nbits", "4",
+                                      "--starkstruct", ss, "--chelpers", f"{d}/m.chelpers.bin"],
+                 port_extra=())
+    _same_bytes(dirs, "m.chelpers.bin")
+
+
+# -- the recursion tier: pil2circom -> compressor-setup -> compressor-exec ------
+
+INNER_STRUCT = {"nBits": 4, "nBitsExt": 7, "nQueries": 2, "verificationHashType": "GL",
+                "steps": [{"nBits": 7}, {"nBits": 3}]}
+CIRCUIT_FILES = ["circuit/verifier.circom", "circuit/poseidon.circom", "circuit/fft.circom"]
+COMPRESSOR_FILES = ["c12.pil.json", "c12.const.npy", "c12.exec", "c12.wtns.json",
+                    "c12.meta.json", "c12.commit.npy", "c12.publics.json"]
+
+
+@pytest.fixture(scope="module")
+def recursion_dirs(tmp_path_factory):
+    """fibonacci 2^4 / ext 2^7 proved by each CLI, then its verifier
+    circuit, the C12 setup of that circuit on the proof's zkin, and the
+    C12 witness, each through each CLI from that CLI's own files."""
+    tmp = tmp_path_factory.mktemp("recursion")
+    ss = _w(tmp / "ss.json", INNER_STRUCT)
+    dirs = _both(tmp, lambda d: ["prove", "--model", "fibonacci", "--nbits", "4",
+                                 "--starkstruct", ss, "--tmp", str(d)],
+                 jax_extra=("--backend", "numpy"))
+    for argv in (
+        lambda d: ["pil2circom", "--starkinfo", f"{d}/starkinfo.json",
+                   "--verifierinfo", f"{d}/verifierinfo.json", "--verkey", f"{d}/verkey.json",
+                   "-o", f"{d}/circuit"],
+        lambda d: ["compressor-setup", "--circom-dir", f"{d}/circuit", "--inputs",
+                   f"{d}/zkin.json", "--out-prefix", f"{d}/c12", "--cols", "12"],
+        lambda d: ["compressor-exec", "--exec", f"{d}/c12.exec", "--wtns", f"{d}/c12.wtns.json",
+                   "--meta", f"{d}/c12.meta.json", "--commit", f"{d}/c12.commit.npy",
+                   "--publics", f"{d}/c12.publics.json"],
+    ):
+        _both(tmp, argv, port_extra=())
+    return dirs
+
+
+@pytest.mark.parametrize("name", CIRCUIT_FILES + COMPRESSOR_FILES)
+def test_recursion_file_equals_jax(recursion_dirs, name):
+    _same_bytes(recursion_dirs, name)
+
+
+def test_recursion_files_hold_the_c12(recursion_dirs):
+    d = recursion_dirs["port"]
+    jax_names = sorted(p.name for p in (recursion_dirs["jax"] / "circuit").iterdir())
+    assert sorted(p.name for p in (d / "circuit").iterdir()) == jax_names
+    meta = json.loads((d / "c12.meta.json").read_text())
+    assert meta == {"nBits": 11, "nPublics": 3, "cols": 12}
+    assert np.load(d / "c12.commit.npy").shape == (2048, 12)
+    assert json.loads((d / "c12.publics.json").read_text()) == json.loads(
+        (d / "publics.json").read_text())
+
+
+def test_pil2circom_refuses_bn128(recursion_dirs, tmp_path):
+    d = recursion_dirs["port"]
+    info = json.loads((d / "starkinfo.json").read_text())
+    info["starkStruct"]["verificationHashType"] = "BN128"
+    si = _w(tmp_path / "si.json", info)
+    with pytest.raises(NotImplementedError, match="Queue A 5b"):
+        port_main(["pil2circom", "--starkinfo", si, "--verifierinfo",
+                   f"{d}/verifierinfo.json", "--verkey", f"{d}/verkey.json",
+                   "-o", str(tmp_path / "c")])
+
+
 def test_default_device_is_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

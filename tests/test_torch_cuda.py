@@ -408,6 +408,49 @@ def test_vm_proof_on_card_equals_cpu(card):
                            s["verifierInfo"])
 
 
+def test_c12_recursive_proof_on_card_equals_cpu(card):
+    """The smallest chain of the recursion tier: fibonacci 2^4 / ext 2^7
+    with 2 queries, its verifier circuit through the port's circom
+    front-end, and the 2^11-row C12 machine of it (blowup 2, 8 queries)
+    proved on the card and on the CPU: the same proof, which verifies."""
+    import copy
+
+    from pil2_stark_tpu_torch.compiler import circom_front, compressor12, pil1_parser, pil2circom
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import prover, setup, verifier
+    from pil2_stark_tpu_torch.utils import proof2zkin
+
+    pil = pil1_parser.compile_pil_source(fibonacci.pil_source(4))
+    pil["name"] = "Fibonacci"
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 16, [1, 2])
+    ss = {"nBits": 4, "nBitsExt": 7, "nQueries": 2, "verificationHashType": "GL",
+          "steps": [{"nBits": 7}, {"nBits": 3}]}
+    s = setup.stark_setup(const_cols.buffer, pil, ss, device=card)
+    res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["constTree"],
+                       (cm_cols.buffer, publics), device=card)
+    zkin = proof2zkin.proof2zkin(res["proof"], s["starkInfo"])
+    zkin["publics"] = [int(p) for p in publics]
+    files = pil2circom.emit_circuit_files([int(v) for v in s["constRoot"]], s["starkInfo"],
+                                          s["verifierInfo"])
+    cc = circom_front.compile_and_witness(files, "verifier.circom", zkin)
+    assert cc.check()
+    c12 = compressor12.setup(cc)
+    cm = compressor12.exec_witness(cc.witness, c12["plonkAdditions"], c12["sMap"], c12["nBits"])
+    c12_publics = [int(x) for x in cc.witness[1:1 + c12["nPublics"]]]
+    ss12 = {"nBits": 11, "nBitsExt": 12, "nQueries": 8, "verificationHashType": "GL",
+            "steps": [{"nBits": 12}, {"nBits": 8}, {"nBits": 4}]}
+    assert c12["nBits"] == 11
+    out = []
+    for dev in (card, torch.device("cpu")):
+        s12 = setup.stark_setup(c12["constBuffer"], c12["pil"], copy.deepcopy(ss12), device=dev)
+        r12 = prover.prove(s12["starkInfo"], s12["expressionsInfo"], c12["constBuffer"],
+                           s12["constTree"], (cm, c12_publics), device=dev)
+        out.append((_canon(r12["proof"]), r12["challenges"]))
+    assert out[0] == out[1]
+    assert verifier.verify(r12["proof"], r12["publics"], s12["constRoot"], s12["starkInfo"],
+                           s12["verifierInfo"])
+
+
 @pytest.mark.parametrize("flip", [False, True])
 def test_debug_prove_on_card_equals_cpu(card, flip):
     """prove(debug=True) on the card runs the im-pol program on T1 and

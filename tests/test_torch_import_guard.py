@@ -5,7 +5,8 @@ compiles fibonacci 2^6 to its committed setup, sets it up, proves and
 verifies it on the CPU, the Poseidon VM's
 builders, debug mode, fibv and the global constraints run, the CLI
 proves and verifies fibonacci 2^6 on the CPU, and the multi-device prover
-(parallel/) runs a sharded transform and tree on 4 CPU ranks.  Its sources
+(parallel/) runs a sharded transform and tree on 4 CPU ranks, and the
+recursion tier's modules are all there and emit their circuits and PIL.  Its sources
 name neither package in an import statement, and its entry points refuse
 to fall back to the CPU when no card is there."""
 import pathlib
@@ -85,6 +86,14 @@ x = torch_gl.from_u64(np.arange(3 * 256, dtype=np.uint64).reshape(3, 256), "cpu"
 ext = ntt_sharded.sharded_ntt(mesh.scatter(x), 8, mesh)
 assert (mesh.gather(ext) == ntt.planar_ntt(x, 8, False)).all()
 assert merkle_sharded.merkelize(mesh, ext, 3, 256).root.shape == (4,)
+# the Goldilocks recursion tier: its ten modules, the gadget library, a C12 PIL
+tier = {"pil2_stark_tpu_torch.utils.r1cs"} | {f"pil2_stark_tpu_torch.compiler.{m}" for m in (
+    "r1cs2plonk", "compressor", "circom_gadgets", "pil2circom", "circom_front", "compressor12",
+    "compressor18", "vadcop", "chelpers_bin")}
+assert tier <= set(names), tier - set(names)
+from pil2_stark_tpu_torch.compiler import circom_gadgets, compressor12, pil1_parser as parser
+assert "template" in circom_gadgets.emit_gadget_files()["poseidon.circom"]
+assert parser.compile_pil_source(compressor12._pil_source(4, 3))["nCommitments"] == 12
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("IMPORTED", len(names))
 '''
