@@ -143,6 +143,36 @@ Phases, each printing one JSON line:
                    host constraint checks), which must find errors.  The
                    recursion machines' T1 programs build in a thread from
                    the start of the build phase (RecursionBuild).
+ 11. snark       — the BN128 half of the recursion tier.  Right after the
+                   recursion path's inner proof, fibonacci 2^6 / ext 2^9
+                   with BN128 trees and 4 queries (plain at arity 16,
+                   merkleTreeCustom at arity 4) is compiled by the port,
+                   set up and proved on the default device (launches
+                   counted over both proves: B1, B3, T1 and T2 must run;
+                   its transforms are single B3 passes and its trees host
+                   Poseidon-BN254) and verified, with
+                   no fixed-column upload; each kernel is held against its
+                   plain version at the path's shapes.  Three worker
+                   processes (this script with --snark-worker, at nice 10)
+                   then run beside the other phases: for each proof, the same STARK
+                   proved on the CPU must equal the card's bit for bit;
+                   pil2circom_bn128 emits its verifier circuit (the same
+                   text from the CPU's setup); the BN254 front-end builds
+                   the witness on the card's zkin and check() holds; a
+                   corrupted zkin is refused; the final machine
+                   (finalfflonk for the plain circuit, final9 for the
+                   custom-gate one) is set up and executed at size, with
+                   signals, constraints, rows, seconds and peak RSS; its
+                   fflonk setup (40 · N powers of tau on the host) is
+                   stated as a cut with its reckoning.  The third worker
+                   proves a chain of multiplications laid out as
+                   finalfflonk at 2^SNARK_FFLONK_BITS rows with fflonk
+                   (dev_ptau, setup, prove, verify; a changed public and
+                   evaluation refused; debug mode), then runs Mul3 through
+                   the CLI (final-setup, final-exec, fflonkinfo,
+                   fflonk-setup, fflonk-prove, fflonk-verify) and requires
+                   its proof to equal the library's.  At the end the phase
+                   waits for the workers; launches in `["snark"]`.
 Every prove must upload the fixed columns zero times (the const tree keeps
 them on the card; fixed_uploads_per_prove, cold and warm).
 In each prove phase the kernels' launch counters are zeroed just before the
@@ -158,7 +188,7 @@ Then the card's name and power limit, the kernels line, and as the last line
 card; imports nothing of JAX.  `python3 chip_smoke.py --only mesh` runs the
 build, prove_vm and mesh phases alone (for a machine with four cards);
 `--only recursion` the build, the small and cli recursion chains and the
-recursion phase.  Every process the script starts is ended before it
+recursion phase; `--only snark` the build and the snark phase.  Every process the script starts is ended before it
 exits.
 """
 from __future__ import annotations
@@ -206,6 +236,40 @@ RECURSION_WAIT_S = 1000  # the longest the recursion phase waits on the worker
 SMALL_CHAIN = {"nBits": 4, "nBitsExt": 7, "nQueries": 2, "verificationHashType": "GL",
                "steps": [{"nBits": 7}, {"nBits": 3}]}
 SMALL_QUERIES = 8
+# the snark path (the BN128 half of the recursion tier): fibonacci 2^6 / ext
+# 2^9 with BN128 trees and 4 queries (the struct of tests/test_circom_bn128.py),
+# merkleTreeCustom false at arity 16 and true at arity 4 (t = 5, the widest
+# PoseidonT the final9 machine lays out), proved on the card; its verifier
+# circuits, their final machines (finalfflonk for the plain circuit, final9
+# for the custom-gate one) and the fflonk leg run in worker processes that
+# write under SNARK_DIR (gitignored)
+SNARK_DIR = "pil2_stark_tpu_torch/_build/snark"
+SNARK_QUERIES = 4
+SNARK_CASES = {"plain": {"merkleTreeArity": 16},
+               "custom": {"merkleTreeArity": 4, "merkleTreeCustom": True}}
+SNARK_FINAL_COLS = {"plain": 0, "custom": 9}
+# the kernels the snark path's proves launch: its transforms (up to 2^9
+# points) are single B3 passes (ops/ntt.py::planar_ntt, n1 = 1), so B2 has
+# no launch there, and its trees are host Poseidon-BN254, so B4 has none
+SNARK_KERNELS = ("base_rows", "base_grid", "tac_program", "gl_xdiv")
+# the fflonk leg's rows: 40 · 2^9 powers of tau, the most that fit about
+# 120 s of the card machine's host (PERF.md §6)
+SNARK_FFLONK_BITS = 9
+SNARK_SEED = 7  # the fflonk proofs' blinding, random.Random(SNARK_SEED)
+SNARK_TAU = 4242  # dev_ptau's toxic scalar (the CLI's --tau)
+SNARK_PTAU_SAMPLE = 16  # powers timed to reckon the cut fflonk setup
+SNARK_WAIT_S = 1000  # the longest the snark phase waits on its workers, from their start
+MUL3 = """pragma circom 2.1.0;
+template Mul3() {
+    signal input x;
+    signal input y;
+    signal output out;
+    signal t1 <== x * y;
+    signal t2 <== t1 * t1 + x + 5;
+    out <== t2 * y;
+}
+component main {public [x]} = Mul3();
+"""
 WORKERS: list = []  # every process this script starts and has not yet ended
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: its 32-bit
@@ -693,6 +757,29 @@ def _ntt_rows(device, bits, n_cols, inverse, path, ranks=1):
     del x, y_k, z
     torch.cuda.empty_cache()
     return rows
+
+
+def _base_grid_row(device, bits, n_cols, inverse, path):
+    """B3 (base_grid) as the whole transform of n_cols × 2^bits points, as
+    ops/ntt.py::planar_ntt runs transforms of up to 2^BASE_BITS points (a
+    single base pass, n1 = 1)."""
+    import torch
+
+    from pil2_stark_tpu_torch.ops import cuda_ntt
+
+    n = 1 << bits
+    x = random_field((n_cols * n, 1), 160 + bits + n_cols, device)
+    err = max_abs_err(cuda_ntt.base_grid(x, bits, n_cols, inverse),
+                      cuda_ntt.base_grid_plain(x, bits, n_cols, inverse))
+    row = _kernel_row("base_grid", "pil2_stark_tpu_torch/csrc/ntt.cu",
+                      "pil2_stark_tpu/ops/pallas_ntt.py:497", err,
+                      lambda: cuda_ntt.base_grid(x, bits, n_cols, inverse),
+                      lambda: cuda_ntt.base_grid_plain(x, bits, n_cols, inverse),
+                      n_cols * n * bits / 2 * IMAD_PER_GL_MUL, 2 * n_cols * n * 8,
+                      {"n_cols": n_cols, "n": n, "n1": 1, "n2": n, "inverse": inverse}, path)
+    del x
+    torch.cuda.empty_cache()
+    return row
 
 
 def _poseidon_row(device, batch, path):
@@ -2391,6 +2478,427 @@ def phase_recursion(device, counters, started):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# the snark path: the BN128 half of the recursion tier
+
+
+def snark_struct(case):
+    """fibonacci 2^6 / ext 2^9 with BN128 trees and SNARK_QUERIES queries
+    (the struct of tests/test_circom_bn128.py) for case plain or custom."""
+    from pil2_stark_tpu_torch.models import fibonacci
+
+    return dict(json.loads(json.dumps(fibonacci.STARK_STRUCT)), verificationHashType="BN128",
+                nQueries=SNARK_QUERIES, **SNARK_CASES[case])
+
+
+def snark_proof(case, device):
+    """(setup, result, zkin, fixed-column uploads of the prove) of the snark
+    path's STARK, compiled by the port, set up and proved on `device`."""
+    from pil2_stark_tpu_torch.compiler import pil1_parser
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
+    from pil2_stark_tpu_torch.utils import proof2zkin
+
+    pil = pil1_parser.compile_pil_source(fibonacci.pil_source(6))
+    pil["name"] = "Fibonacci"
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
+    s = stark_setup.stark_setup(const_cols.buffer, pil, snark_struct(case), device=device)
+    with fixed_uploads(const_cols.buffer) as uploads:
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics), device=device)
+    zkin = canon(proof2zkin.proof2zkin(res["proof"], s["starkInfo"]))
+    zkin["publics"] = [int(p) for p in publics]
+    return s, res, zkin, uploads[0]
+
+
+def mul_chain(k):
+    """A circuit of k + 2 multiplications (Mul3 of tests/test_final.py
+    widened): out = t_k * y with t_0 = x * y, t_i = t_(i-1)^2 + x + 5."""
+    return f"""pragma circom 2.1.0;
+template MulChain(k) {{
+    signal input x;
+    signal input y;
+    signal output out;
+    signal t[k + 1];
+    t[0] <== x * y;
+    for (var i = 1; i <= k; i++) {{
+        t[i] <== t[i - 1] * t[i - 1] + x + 5;
+    }}
+    out <== t[k] * y;
+}}
+component main {{public [x]}} = MulChain({k});
+"""
+
+
+def start_snark(device, counters):
+    """The snark path's STARK on the card: fibonacci 2^6 / ext 2^9 with
+    BN128 trees (plain at arity 16, custom at arity 4), compiled by the
+    port, set up and proved on the default device with the kernels'
+    counters zeroed just before the first prove and read just after the
+    second; both proofs verified, no fixed-column upload; B1, B3, T1 and
+    T2 must have launched (SNARK_KERNELS).  Then the host half starts in
+    processes of their own (snark_worker): one per circuit, and the fflonk
+    leg.  Returns the kernel rows at the path's shapes and {procs,
+    launches, started}."""
+    import os
+    import shutil
+
+    import torch
+
+    from pil2_stark_tpu_torch.stark import verifier
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), SNARK_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    for c in counters:
+        c.launches = 0
+    cards, steps = {}, {}
+    for case in SNARK_CASES:
+        t0 = time.perf_counter()
+        cards[case] = snark_proof(case, None)
+        torch.cuda.synchronize()
+        steps[case] = {"setup_and_prove_s": time.perf_counter() - t0}
+    launches = {c.__name__: c.launches for c in counters}
+    for case, (s, res, zkin, uploads) in cards.items():
+        t0 = time.perf_counter()
+        steps[case].update(verified=verifier.verify(res["proof"], res["publics"], s["constRoot"],
+                                                    s["starkInfo"], s["verifierInfo"]),
+                           verify_s=time.perf_counter() - t0, fixed_uploads=uploads,
+                           prove_phases_s=res["timings"], stark_struct=s["starkInfo"]["starkStruct"])
+        with open(os.path.join(d, f"{case}.json"), "w") as f:
+            json.dump({"constRoot": s["constRoot"], "starkInfo": s["starkInfo"],
+                       "verifierInfo": s["verifierInfo"], "proof": canon(res["proof"]),
+                       "challenges": canon(res["challenges"]), "zkin": zkin}, f)
+    emit({"phase": "snark", "step": "card", "cases": steps, "launches": launches})
+    zero = [k for k in SNARK_KERNELS if not launches[k]]
+    bad = [c for c, st in steps.items() if not st["verified"] or st["fixed_uploads"]]
+    if zero or bad:
+        raise AssertionError(f"the snark path's card proves: kernels never launched {zero}, "
+                             f"unverified or uploading {bad}")
+    # each kernel of the path against its plain version at the path's
+    # shapes: B3 at the stage-1 iNTT and the widest LDE's NTT, B1 at the
+    # first FRI fold, T1 on the three programs, T2 at the extended domain
+    s = cards["plain"][0]
+    info = s["starkInfo"]
+    ss = info["starkStruct"]
+    widest = max(v for k, v in info["mapSectionsN"].items() if k.startswith("cm"))
+    rows = [_base_grid_row(device, ss["nBits"], info["mapSectionsN"]["cm1"], True, "snark"),
+            _base_grid_row(device, ss["nBitsExt"], widest, False, "snark")]
+    fold = ss["steps"][0]["nBits"] - ss["steps"][1]["nBits"]
+    rows.append(_b1_row(device, fold, 3 << ss["steps"][1]["nBits"], True, "snark"))
+    rows += _tac_rows(device, "snark", ("imPols", "q", "fri"), setup=s)
+    rows.append(_xdiv_row(device, ss["nBitsExt"], "snark", openings=len(info["openingPoints"])))
+    for r in rows:
+        emit({"phase": "snark", **r})
+    bad = [(r["name"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at the snark path's "
+                             f"shapes: {bad}")
+    del cards, s
+    torch.cuda.empty_cache()
+    procs = {}
+    for job in (*SNARK_CASES, "fflonk"):
+        logs = (open(os.path.join(d, f"{job}.out"), "w+"), open(os.path.join(d, f"{job}.err"), "w+"))
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--snark-worker", d,
+                                 job], stdout=logs[0], stderr=logs[1])
+        WORKERS.append(proc)
+        procs[job] = (proc, logs)
+    return rows, {"procs": procs, "launches": launches, "started": time.perf_counter()}
+
+
+def snark_worker(d, job, bits=None):
+    """The host half of the snark path, in a process of its own.
+
+    plain / custom: the STARK proved again on the CPU must equal the
+    card's proof bit for bit and verify; pil2circom of the card's and of
+    the CPU's setup must give the same text; the BN254 front-end on the
+    card's zkin, check(); a corrupted zkin must be refused; then the final
+    machine of the circuit (final9 for the custom-gate circuit, finalfflonk
+    for the plain one: final.plonksetup.setup, exec_witness, its
+    fflonkinfo).  Its fflonk setup is out of reach on the host (40 · N
+    powers of tau, dev_ptau's seconds per power measured here): stated as a
+    cut with that reckoning.
+
+    fflonk: a chain of multiplications laid out as finalfflonk at
+    2^bits rows (SNARK_FFLONK_BITS unless given) through fflonkinfo, dev_ptau(40 · N),
+    fflonk_setup, fflonk_prove(rng=Random(SNARK_SEED)) and fflonk_verify
+    (true; a changed public and a changed evaluation false), debug mode
+    ([] on the witness, errors on a changed one); then Mul3 through the CLI
+    (final-setup, final-exec, fflonkinfo, fflonk-setup, fflonk-prove,
+    fflonk-verify), whose proof must equal the library's.  One JSON line
+    each, with the worker's peak RSS."""
+    import os
+
+    # the host half is read only at the end of the run: it yields the CPU
+    # to the card phases and to the recursion machines' nvcc beside it
+    os.nice(10)
+    peak = PeakRss()
+    peak.start()
+    t_job = time.perf_counter()
+    out = snark_fflonk(d, int(bits or SNARK_FFLONK_BITS)) if job == "fflonk" else (
+        snark_circuit(d, job))
+    out.update(job=job, seconds=time.perf_counter() - t_job, peak_rss_bytes=peak.bytes())
+    emit(out)
+    return 0 if out["ok"] else 1
+
+
+class PeakRss(threading.Thread):
+    """This process's own peak resident set: VmHWM where /proc/self/status
+    has it, else the largest resident set sampled from /proc/self/statm
+    every 0.2 s.  (getrusage's ru_maxrss in a process this script spawned
+    also counts the parent's resident set at the fork.)"""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.peak = 0
+
+    def run(self):
+        import os
+
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            with open("/proc/self/statm") as f:
+                self.peak = max(self.peak, int(f.read().split()[1]) * page)
+            time.sleep(0.2)
+
+    def bytes(self):
+        with open("/proc/self/status") as f:
+            hwm = [int(ln.split()[1]) * 1024 for ln in f if ln.startswith("VmHWM:")]
+        return hwm[0] if hwm else self.peak
+
+
+def snark_circuit(d, case):
+    import os
+    import random
+
+    from pil2_stark_tpu_torch.compiler import circom_front, pil2circom, pilinfo
+    from pil2_stark_tpu_torch.final import exec as fexec, plonksetup
+    from pil2_stark_tpu_torch.protocol.shplonk import dev_ptau
+    from pil2_stark_tpu_torch.stark import verifier
+
+    with open(os.path.join(d, f"{case}.json")) as f:
+        card = json.load(f)
+    out, t0 = {}, time.perf_counter()
+    with one_thread():
+        s, res, _, uploads = snark_proof(case, "cpu")
+    out["cpu_prove_s"] = time.perf_counter() - t0
+    out["card_equals_cpu"] = (canon(res["proof"]) == card["proof"]
+                              and canon(res["challenges"]) == card["challenges"]
+                              and s["constRoot"] == card["constRoot"])
+    out["cpu_verified"] = verifier.verify(res["proof"], res["publics"], s["constRoot"],
+                                          s["starkInfo"], s["verifierInfo"])
+    t0 = time.perf_counter()
+    text = pil2circom.pil2circom(card["constRoot"], card["starkInfo"], card["verifierInfo"])
+    out["pil2circom_s"] = time.perf_counter() - t0
+    out["circuit_bytes"] = len(text)
+    out["text_equals_cpu"] = text == pil2circom.pil2circom(s["constRoot"], s["starkInfo"],
+                                                           s["verifierInfo"])
+    del s, res
+    files = {"verifier.circom": text}
+    t0 = time.perf_counter()
+    cc = circom_front.compile_and_witness(files, "verifier.circom", card["zkin"],
+                                          prime=circom_front.BN254_FR)
+    out["front_end_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["check"] = cc.check()
+    out["check_s"] = time.perf_counter() - t0
+    out.update(signals=cc.n_vars, constraints=len(cc.constraints),
+               custom_gate_uses=len(cc.custom_uses), n_publics=cc.n_outputs + cc.n_pub_inputs)
+    bad = dict(card["zkin"], evals=[list(e) for e in card["zkin"]["evals"]])
+    bad["evals"][0][0] = (bad["evals"][0][0] + 1) % P
+    t0 = time.perf_counter()
+    try:
+        circom_front.compile_and_witness(files, "verifier.circom", bad,
+                                         prime=circom_front.BN254_FR)
+        out["corrupted_refused"] = False
+    except AssertionError as e:
+        out["corrupted_refused"], out["corrupted_error"] = True, str(e)[:200]
+    out["corrupted_s"] = time.perf_counter() - t0
+
+    cols = SNARK_FINAL_COLS[case]
+    t0 = time.perf_counter()
+    fs = plonksetup.setup(cc, cols=cols)
+    out["final_setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cm = fexec.exec_witness(cc.witness, fs["plonkAdditions"], fs["sMap"])
+    out["final_exec_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info = pilinfo.pil_info(fs["pil"], stark=False, options={"field": "fr"})
+    out["fflonkinfo_s"] = time.perf_counter() - t0
+    width = len(fs["sMap"])
+    publics = [int(cc.witness[i]) for i in range(1, 1 + fs["nPublics"])]
+    out["final"] = {"machine": {0: "finalfflonk", 9: "final9"}[cols], "n_bits": fs["nBits"],
+                    "rows_used": fs["NUsed"], "committed": width,
+                    "constants": len(info["pilInfo"]["constPolsMap"]),
+                    "plonk_additions": len(fs["plonkAdditions"]), "n_publics": fs["nPublics"]}
+    out["final_ok"] = (cm.shape == (1 << fs["nBits"], width)
+                       and publics == [int(p) for p in card["zkin"]["publics"]]
+                       and [int(cm[i // width, i % width]) for i in range(len(publics))] == publics)
+    # the cut: the 40 · N powers of tau the CLI's fflonk-setup takes, at
+    # dev_ptau's seconds per power measured here for the fflonk leg's small
+    # tau and for a full-width one (a power is one scalar multiplication,
+    # whose cost grows with tau's bits)
+    powers = 40 << fs["nBits"]
+    cut = {"ptau_powers": powers}
+    for label, tau in (("small_tau", SNARK_TAU),
+                       ("full_width_tau", random.Random(SNARK_SEED).randrange(1, plonksetup.FR))):
+        t0 = time.perf_counter()
+        dev_ptau(SNARK_PTAU_SAMPLE, tau=tau)
+        per_power = (time.perf_counter() - t0) / SNARK_PTAU_SAMPLE
+        cut[label] = {"s_per_power": per_power, "ptau_s_reckoned": powers * per_power}
+    out["fflonk_setup_cut"] = cut
+    out["ok"] = all(out[k] for k in ("card_equals_cpu", "cpu_verified", "text_equals_cpu",
+                                     "check", "corrupted_refused", "final_ok")) and not uploads
+    return out
+
+
+def snark_fflonk(d, n_bits):
+    import os
+    import random
+
+    import numpy as np
+
+    from pil2_stark_tpu_torch.__main__ import main as cli
+    from pil2_stark_tpu_torch.compiler import circom_front, pilinfo
+    from pil2_stark_tpu_torch.fflonk.prover import fflonk_prove
+    from pil2_stark_tpu_torch.fflonk.shkey import fflonk_setup, verification_key
+    from pil2_stark_tpu_torch.fflonk.verifier import fflonk_verify
+    from pil2_stark_tpu_torch.final import exec as fexec, plonksetup
+    from pil2_stark_tpu_torch.protocol.shplonk import dev_ptau
+
+    fr = plonksetup.FR
+    out, steps = {"n_bits": n_bits}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        steps[name] = time.perf_counter() - t0
+        return r
+
+    def machine(src, cols, options):
+        cc = circom_front.compile_and_witness({"m.circom": src}, "m.circom", {"x": 3, "y": 4},
+                                              prime=fr)
+        s = plonksetup.setup(cc, cols=cols, options=options)
+        cm = fexec.exec_witness(cc.witness, s["plonkAdditions"], s["sMap"])
+        info = pilinfo.pil_info(s["pil"], stark=False, options={"field": "fr"})
+        return cc, s, cm, [int(cc.witness[i]) for i in range(1, 1 + s["nPublics"])], info
+
+    k = (1 << n_bits) - 8  # the rows of k + 2 products, the publics' row and the padding
+    cc, s, cm, publics, info = step("circuit_and_final_setup", lambda: machine(
+        mul_chain(k), 0, {"nCommitted": 6, "forceNBits": n_bits}))
+    out.update(multiplications=k + 2, rows_used=s["NUsed"], constraints=len(cc.constraints),
+               ptau_powers=40 << n_bits, check=cc.check() and s["nBits"] == n_bits)
+    ptau = step("dev_ptau", lambda: dev_ptau(40 << n_bits, tau=SNARK_TAU))
+    zkey = step("fflonk_setup", lambda: fflonk_setup(s["constPols"], info["pilInfo"], ptau))
+    args = (zkey, ptau, info["pilInfo"], info["expressionsInfo"])
+    res = step("fflonk_prove", lambda: fflonk_prove(*args, cm, publics,
+                                                    rng=random.Random(SNARK_SEED)))
+    vk = verification_key(zkey, info["pilInfo"])
+    vargs = (vk, info["pilInfo"], info["verifierInfo"])
+    out["verified"] = step("fflonk_verify", lambda: fflonk_verify(*vargs, res["proof"],
+                                                                  res["publics"]))
+    wrong = [(res["publics"][0] + 1) % fr] + list(res["publics"][1:])
+    out["changed_public_refused"] = fflonk_verify(*vargs, res["proof"], wrong) is False
+    proof = {"polynomials": dict(res["proof"]["polynomials"]),
+             "evaluations": dict(res["proof"]["evaluations"])}
+    name = next(e for e in proof["evaluations"] if e not in ("inv", "invZh"))
+    proof["evaluations"][name] = (proof["evaluations"][name] + 1) % fr
+    out["changed_evaluation_refused"] = fflonk_verify(*vargs, proof, res["publics"]) is False
+    out["debug_errors"] = len(step("fflonk_debug", lambda: fflonk_prove(*args, cm, publics,
+                                                                        debug=True)))
+    bad = cm.copy()
+    bad[5, 2] = (int(bad[5, 2]) + 1) % fr
+    out["debug_errors_changed"] = len(fflonk_prove(*args, bad, publics, debug=True))
+    out["seconds_by_step"] = steps
+
+    # Mul3 through the CLI, in this process; its proof against the library's
+    cli_dir = os.path.join(d, f"cli_{n_bits}")
+    os.makedirs(cli_dir, exist_ok=True)
+    p = lambda name: os.path.join(cli_dir, name)  # noqa: E731
+    with open(p("main.circom"), "w") as f:
+        f.write(MUL3)
+    with open(p("inputs.json"), "w") as f:
+        json.dump({"x": 3, "y": 4}, f)
+    t0 = time.perf_counter()
+    for argv in (
+            ["final-setup", "--circom-dir", cli_dir, "--entry", "main.circom", "--inputs",
+             p("inputs.json"), "--out-prefix", p("m"), "--cols", "0", "--ncommitted", "6"],
+            ["final-exec", "--exec", p("m.exec"), "--wtns", p("m.wtns.json"), "--meta",
+             p("m.meta.json"), "--commit", p("m.commit.json"), "--publics", p("m.publics.json")],
+            ["fflonkinfo", "--pil-json", p("m.pil.json"), "--fflonkinfo", p("ffi.json"),
+             "--expressionsinfo", p("ei.json"), "--verifierinfo", p("vi.json")],
+            ["fflonk-setup", "--fflonkinfo", p("ffi.json"), "--const", p("m.const.json"),
+             "--tau", str(SNARK_TAU), "--zkey", p("zkey.json"), "--ptau", p("ptau.json"),
+             "--verificationkey", p("vk.json")],
+            ["fflonk-prove", "--zkey", p("zkey.json"), "--ptau", p("ptau.json"), "--fflonkinfo",
+             p("ffi.json"), "--expressionsinfo", p("ei.json"), "--commit", p("m.commit.json"),
+             "--publics", p("m.publics.json"), "--seed", str(SNARK_SEED), "--proof",
+             p("proof.json"), "--out-publics", p("proof.publics.json")]):
+        cli(argv)
+    with open(p("proof.publics.json")) as f:
+        pubs = json.load(f)
+    with open(p("bad.publics.json"), "w") as f:
+        json.dump([str((int(pubs[0]) + 1) % fr)] + pubs[1:], f)
+    codes = []
+    for publics_file in (p("proof.publics.json"), p("bad.publics.json")):
+        try:
+            cli(["fflonk-verify", "--verificationkey", p("vk.json"), "--fflonkinfo",
+                 p("ffi.json"), "--verifierinfo", p("vi.json"), "--proof", p("proof.json"),
+                 "--publics", publics_file])
+        except SystemExit as e:
+            codes.append(e.code)
+    out["cli_s"] = time.perf_counter() - t0
+    _, s3, cm3, pub3, info3 = machine(MUL3, 0, {"nCommitted": 6})
+    ptau3 = dev_ptau(40 << s3["nBits"], tau=SNARK_TAU)
+    zkey3 = fflonk_setup(s3["constPols"], info3["pilInfo"], ptau3)
+    lib = fflonk_prove(zkey3, ptau3, info3["pilInfo"], info3["expressionsInfo"], cm3, pub3,
+                       rng=random.Random(SNARK_SEED))
+    with open(p("proof.json")) as f:
+        out["cli_proof_equals_library"] = json.load(f) == json.loads(
+            json.dumps(lib["proof"], default=str))
+    out["cli_verify_exit_codes"] = codes
+    out["ok"] = (out["check"] and out["verified"] is True and out["changed_public_refused"]
+                 and out["changed_evaluation_refused"] and out["debug_errors"] == 0
+                 and out["debug_errors_changed"] > 0 and out["cli_proof_equals_library"]
+                 and codes == [0, 1] and np.asarray(cm).shape[0] == 1 << n_bits)
+    return out
+
+
+def phase_snark(started):
+    """Wait for the snark workers and check what each found: the card's
+    proofs equal the CPU's, the circuits accept them and refuse a
+    corrupted zkin, the final machines are set up and executed, the fflonk
+    leg proves, verifies and refuses tampering, the CLI's proof equals the
+    library's.  Returns the snark path's launches."""
+    t_phase = time.perf_counter()
+    results, failed = {}, []
+    for job, (proc, logs) in started["procs"].items():
+        try:
+            proc.wait(timeout=max(1.0, SNARK_WAIT_S - (time.perf_counter() - started["started"])))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.seek(0)
+        out, err = (f.read() for f in logs)
+        for f in logs:
+            f.close()
+        lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            failed.append(job)
+            emit({"phase": "snark", "job": job, "exit": proc.returncode, "stderr": err[-3000:],
+                  **(lines[-1] if lines else {})})
+            continue
+        results[job] = lines[-1]
+        emit({"phase": "snark", "step": job, **lines[-1]})
+    emit({"phase": "snark", "waited_s": time.perf_counter() - t_phase,
+          "workers_s": time.perf_counter() - started["started"]})
+    if failed:
+        raise AssertionError(f"the snark path failed in {failed}")
+    return started["launches"]
+
+
 def prove_counters():
     """The wrappers of every kernel the prove path launches (B1–B4, T1, T2)."""
     from pil2_stark_tpu_torch.hash import cuda_poseidon
@@ -2410,13 +2918,15 @@ def card_line():
 def main(argv):
     if argv[:1] == ["--recursion-worker"]:  # no torch: the host half of the chain
         return recursion_worker(argv[1])
+    if argv[:1] == ["--snark-worker"]:  # the host half of the snark path
+        return snark_worker(*argv[1:])
     import torch
 
     if argv[:1] == ["--mesh-worker"]:
         return mesh_worker(*argv[1:])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("mesh", "recursion"):
-        print("usage: chip_smoke.py [--only mesh|recursion]", file=sys.stderr)
+    if argv and only not in ("mesh", "recursion", "snark"):
+        print("usage: chip_smoke.py [--only mesh|recursion|snark]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2457,12 +2967,16 @@ def main(argv):
 
 
 def run_phases(device, counters, only):
-    """Every phase in order (or those of `--only mesh|recursion`): (kernel
-    rows, tool rows, {path: launches})."""
+    """Every phase in order (or those of `--only mesh|recursion|snark`):
+    (kernel rows, tool rows, {path: launches})."""
     import torch
 
-    phase_build(recursion=only != "mesh")
+    phase_build(recursion=only not in ("mesh", "snark"))
     rows, tool_rows, launches = [], [], {}
+    if only == "snark":
+        rows, snark = start_snark(device, counters)
+        launches["snark"] = phase_snark(snark)
+        return rows, tool_rows, launches
     if only == "recursion":
         started = start_recursion(device)
         launches["cli_recursion"] = cli_recursion(device, counters, small_recursion(device))
@@ -2475,6 +2989,10 @@ def run_phases(device, counters, only):
         # the recursion path's inner proof, then its host half runs beside
         # the phases below until phase_recursion
         started = start_recursion(device)
+        # the snark path's card proves, then its host half beside the phases
+        # below until phase_snark
+        snark_rows, snark = start_snark(device, counters)
+        rows += snark_rows
         tool_rows, launches = phase_tools(device, rows)
         small_library = phase_small(device)
         phase_large_ntt(device, LARGE_BITS, LARGE_COLS)
@@ -2493,6 +3011,7 @@ def run_phases(device, counters, only):
         more_rows, more = phase_recursion(device, counters, started)
         rows += more_rows
         launches.update(more)
+        launches["snark"] = phase_snark(snark)
     return rows, tool_rows, launches
 
 

@@ -20,15 +20,28 @@ compressor/main_compressor_setup.js, compressor/main_compressor_exec.js):
   compressor-exec  exec + witness -> committed-polynomial buffer + publics
 
 so a proof is verified inside a C12 or C18 machine that `prove
---pil-json/--const/--commit/--publics` proves.
+--pil-json/--const/--commit/--publics` proves.  The BN128 tier
+(final/main_final_setup.js, main_final_exec.js, fflonk/main_*.js):
+
+  final-setup      circuit over BN254-Fr + inputs -> final9/final6/finalfflonk
+                   pil/const/exec/witness files
+  final-exec       exec + witness -> Fr committed buffer + publics
+  fflonkinfo       PIL -> fflonkinfo/expressionsinfo/verifierinfo (Fr)
+  fflonk-setup     constants + fflonkinfo -> zkey, powers of tau, verification key
+  fflonk-prove     zkey + committed buffer -> fflonk proof + publics
+  fflonk-chelpers  fflonkinfo -> .fflonkchelpers.bin (flattened stage TACs)
+  fflonk-verify    verification key + proof -> accept (exit 0) / reject (exit 1)
 
 Every file equals the JAX package's for the same arguments.  ``--device``
 takes the place of the JAX CLI's ``--backend``: by default the card
 (``prove``, ``buildconsttree`` and ``pilverify`` raise when there is none),
 ``--device cpu`` runs the kernels' plain versions.  ``buildconsttree``
 extends and Merkelizes on the device, as stark.setup.load_setup does.
-The BN128 tier (a BN128 verifier circuit, final-setup/-exec, fflonk*,
-export*) is not ported yet: ``pil2circom`` refuses a BN128 starkinfo.
+``pil2circom`` sends a BN128 starkinfo to the BN128 circuit, as the JAX
+CLI does; as there, a verkey file holds no BN128 root, so that call fails
+and the BN128 circuit is emitted through the library.  The export
+subcommands (exportverificationkey, exportsolidityverifier,
+exportcalldata) are not ported yet.
 
 Artifact containers are the JAX package's own formats (.npy for u64
 buffers, JSON with stringified big ints, the PSTC consts container).
@@ -276,7 +289,8 @@ def _read_circom_dir(path: str) -> dict:
 
 def cmd_pil2circom(args):
     """main_pil2circom.js: starkinfo + verifier info + verkey -> verifier
-    circuit files (the GL gadget set; a BN128 starkinfo is refused)."""
+    circuit files (the GL gadget set, or the BN128 one for a BN128
+    starkinfo)."""
     from .compiler import pil2circom
     from .utils import serialization
 
@@ -291,32 +305,48 @@ def cmd_pil2circom(args):
     print(f"wrote {len(files)} circuit files to {args.out}")
 
 
-def cmd_compressor_setup(args):
-    """compressor/main_compressor_setup.js (C12 or C18 by --cols): compile
-    the circuit with the circom front-end (compiler and witness calculator
-    in one), lay out the plonkish machine, write pil/const/exec/witness/
-    meta."""
+def _compressor_like_setup(args, setup_fn, exec_mod, fr: bool):
+    """Shared compressor-setup / final-setup body: compile the circuit
+    with the circom front-end (compiler + witness calculator in one —
+    the reference shells out to circom and a WASM witness calculator),
+    lay out the plonkish machine, write pil/const/exec/witness/meta."""
     from .compiler import circom_front as cf
-    from .compiler import compressor12, compressor18
     from .utils import serialization
 
     files = _read_circom_dir(args.circom_dir)
     inputs = _intify(serialization.load_json(args.inputs))
-    cc = cf.compile_and_witness(files, args.entry, inputs)
+    prime = None
+    if fr:
+        from .final.plonksetup import FR
+
+        prime = FR
+    cc = cf.compile_and_witness(files, args.entry, inputs, prime=prime)
     if not cc.check():
         raise SystemExit("circuit constraint check failed on these inputs")
+
     options = {}
     if args.force_nbits:
         options["forceNBits"] = args.force_nbits
-    mod = compressor18 if args.cols == 18 else compressor12
-    s = mod.setup(cc, options=options)
+    if fr and args.ncommitted:
+        options["nCommitted"] = args.ncommitted
+    if fr:
+        s = setup_fn(cc, cols=args.cols, options=options)
+    else:
+        s = setup_fn(cc, options=options)
 
     pfx = args.out_prefix
     serialization.dump_json(
         json.loads(json.dumps(s["pil"], default=str)), pfx + ".pil.json"
     )
-    np.save(pfx + ".const.npy", s["constBuffer"])
-    compressor12.write_exec_file(pfx + ".exec", s["plonkAdditions"], s["sMap"])
+    if fr:
+        const_rows = [[str(int(v)) for v in row] for row in s["constPols"]]
+        serialization.dump_json(const_rows, pfx + ".const.json")
+        exec_mod.write_exec_file(pfx + ".exec", s["plonkAdditions"],
+                                 s["sMap"],
+                                 ref_format=getattr(args, "ref_exec", False))
+    else:
+        np.save(pfx + ".const.npy", s["constBuffer"])
+        exec_mod.write_exec_file(pfx + ".exec", s["plonkAdditions"], s["sMap"])
     serialization.dump_json(
         [str(int(v)) for v in cc.witness], pfx + ".wtns.json"
     )
@@ -324,9 +354,18 @@ def cmd_compressor_setup(args):
         {"nBits": s["nBits"], "nPublics": s["nPublics"],
          "cols": args.cols}, pfx + ".meta.json"
     )
-    print(f"wrote {pfx}.pil.json, {pfx}.const.npy, {pfx}.exec, "
+    ext = ".const.json" if fr else ".const.npy"
+    print(f"wrote {pfx}.pil.json, {pfx}{ext}, {pfx}.exec, "
           f"{pfx}.wtns.json, {pfx}.meta.json "
           f"(N=2^{s['nBits']}, {s['nPublics']} publics)")
+
+
+def cmd_compressor_setup(args):
+    """compressor/main_compressor_setup.js (C12 or C18 by --cols)."""
+    from .compiler import compressor12, compressor18
+
+    mod = compressor18 if args.cols == 18 else compressor12
+    _compressor_like_setup(args, mod.setup, compressor12, fr=False)
 
 
 def cmd_compressor_exec(args):
@@ -346,6 +385,154 @@ def cmd_compressor_exec(args):
         [str(w) for w in wtns[1:1 + meta["nPublics"]]], args.publics
     )
     print(f"wrote {args.commit}, {args.publics}")
+
+
+def cmd_final_setup(args):
+    """final/main_final_setup.js (final9/final6/finalfflonk)."""
+    from .final import exec as fexec, plonksetup
+
+    _compressor_like_setup(args, plonksetup.setup, fexec, fr=True)
+
+
+def cmd_final_exec(args):
+    """final/main_final_exec.js: exec + witness -> Fr committed buffer."""
+    from .final import exec as fexec
+    from .utils import serialization
+
+    meta = serialization.load_json(args.meta)
+    adds, smap = fexec.read_exec_file(
+        args.exec_file, n_cols=meta.get("cols") or None)
+    wtns = [int(x) for x in serialization.load_json(args.wtns)]
+    cm = fexec.exec_witness(wtns, adds, smap)
+    serialization.dump_json(
+        [[str(int(v)) for v in row] for row in cm], args.commit
+    )
+    serialization.dump_json(
+        [str(w) for w in wtns[1:1 + meta["nPublics"]]], args.publics
+    )
+    print(f"wrote {args.commit}, {args.publics}")
+
+
+# ---------------------------------------------------------------------------
+# on-chain leg (fflonk/main_*.js)
+
+
+def cmd_fflonkinfo(args):
+    """fflonk/main_fflonkinfo.js: PIL -> fflonkinfo + code artifacts
+    (pil_info with stark=False over Fr)."""
+    from .compiler.pilinfo import pil_info
+    from .utils import serialization
+
+    pil = serialization.load_json(args.pil_json)
+    out = pil_info(pil, stark=False, options={"field": args.field})
+    serialization.dump_json(out["pilInfo"], args.fflonkinfo)
+    serialization.dump_json(out["expressionsInfo"], args.expressionsinfo)
+    serialization.dump_json(out["verifierInfo"], args.verifierinfo)
+    print(f"wrote {args.fflonkinfo}, {args.expressionsinfo}, "
+          f"{args.verifierinfo}")
+
+
+def cmd_fflonk_setup(args):
+    """fflonk/main_setup.js + main_shkey.js: constants + fflonkinfo ->
+    zkey + verification key.  The powers-of-tau string is the dev-mode
+    ceremony (protocol/shplonk.py dev_ptau) seeded by --tau; a real
+    deployment would substitute a ceremony transcript."""
+    from .fflonk.shkey import fflonk_setup, verification_key
+    from .protocol.shplonk import dev_ptau
+    from .utils import serialization
+
+    fflonk_info = serialization.load_json(args.fflonkinfo)
+    const_rows = [[int(v) for v in row]
+                  for row in serialization.load_json(args.const)]
+    n = 1 << fflonk_info["pilPower"]
+    ptau_size = args.ptau_size or 40 * n
+    ptau = dev_ptau(ptau_size, tau=args.tau)
+    zkey = fflonk_setup(const_rows, fflonk_info, ptau,
+                        max_q_degree=args.max_q_degree)
+
+    def np_default(o):
+        if isinstance(o, np.ndarray):
+            return o.tolist()
+        return int(o)
+
+    with open(args.zkey, "w") as f:
+        json.dump(zkey, f, default=np_default)
+    serialization.dump_json({"g1": ptau["g1"], "X_2": ptau["X_2"]}, args.ptau)
+    vk = verification_key(zkey, fflonk_info)
+    serialization.dump_json(vk, args.verificationkey)
+    print(f"wrote {args.zkey}, {args.ptau}, {args.verificationkey}")
+
+
+def cmd_fflonk_prove(args):
+    """fflonk/main_prover.js: zkey + committed buffer -> proof."""
+    import random
+
+    from .fflonk.prover import fflonk_prove
+    from .utils import serialization
+
+    zkey = serialization.load_json(args.zkey)
+    ptau = serialization.load_json(args.ptau)
+    fflonk_info = serialization.load_json(args.fflonkinfo)
+    expressions_info = serialization.load_json(args.expressionsinfo)
+    rows = serialization.load_json(args.commit)
+    cm = np.empty((len(rows), len(rows[0]) if rows else 0), dtype=object)
+    for i, row in enumerate(rows):
+        for j, v in enumerate(row):
+            cm[i, j] = int(v)
+    publics = [int(x) for x in serialization.load_json(args.publics)]
+    chelpers = None
+    if getattr(args, "chelpers", None):
+        from .fflonk import chelpers as fflonk_chelpers
+        chelpers = fflonk_chelpers.read_file(args.chelpers)
+    res = fflonk_prove(zkey, ptau, fflonk_info, expressions_info, cm,
+                       publics, rng=random.Random(args.seed),
+                       chelpers=chelpers)
+    serialization.dump_json(
+        json.loads(json.dumps(res["proof"], default=str)), args.proof
+    )
+    serialization.dump_json([str(p) for p in res["publics"]],
+                            args.out_publics)
+    print(f"wrote {args.proof}, {args.out_publics}")
+
+
+def cmd_fflonk_chelpers(args):
+    """fflonk/chelpers twin (fflonk_chelpers.js:1-242): flatten the stage
+    TACs into the `.fflonkchelpers.bin` bytecode artifact."""
+    from .fflonk import chelpers as fflonk_chelpers
+    from .utils import serialization
+
+    fflonk_info = serialization.load_json(args.fflonkinfo)
+    expressions_info = serialization.load_json(args.expressionsinfo)
+    units = fflonk_chelpers.write_file(args.out, fflonk_info,
+                                       expressions_info)
+    n_ops = sum(len(u["ops"]) for us in units.values() for u in us)
+    print(f"wrote {args.out} ({n_ops} flattened ops)")
+
+
+def _load_fflonk_proof(path):
+    from .utils import serialization
+
+    proof = _intify(serialization.load_json(path))
+    proof["polynomials"] = {
+        k: (None if v is None else (int(v[0]), int(v[1])))
+        for k, v in proof["polynomials"].items()
+    }
+    return proof
+
+
+def cmd_fflonk_verify(args):
+    """fflonk/main_verifier.js."""
+    from .fflonk.verifier import fflonk_verify
+    from .utils import serialization
+
+    vk = serialization.load_json(args.verificationkey)
+    fflonk_info = serialization.load_json(args.fflonkinfo)
+    verifier_info = serialization.load_json(args.verifierinfo)
+    proof = _load_fflonk_proof(args.proof)
+    publics = [int(x) for x in serialization.load_json(args.publics)]
+    ok = fflonk_verify(vk, fflonk_info, verifier_info, proof, publics)
+    print("VALID proof" if ok else "INVALID proof")
+    sys.exit(0 if ok else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -522,23 +709,97 @@ def main(argv=None):
     sp.add_argument("-o", "--out", default="circuit")
     sp.set_defaults(fn=cmd_pil2circom)
 
+    def circuit_setup_args(sp, fr):
+        sp.add_argument("--circom-dir", dest="circom_dir", required=True)
+        sp.add_argument("--entry", default="verifier.circom")
+        sp.add_argument("--inputs", required=True,
+                        help="circuit inputs JSON (e.g. the zkin file)")
+        sp.add_argument("--out-prefix", dest="out_prefix", required=True)
+        sp.add_argument("--force-nbits", dest="force_nbits", type=int)
+        if fr:
+            sp.add_argument("--cols", type=int, default=9,
+                            choices=[0, 6, 9])
+            sp.add_argument("--ncommitted", type=int,
+                            help="finalfflonk (cols=0) committed columns")
+            sp.add_argument("--ref-exec", dest="ref_exec",
+                            action="store_true",
+                            help="write .exec as the reference's iden3 "
+                                 "'exec' binfile (exec_helpers.js)")
+        else:
+            sp.add_argument("--cols", type=int, default=12,
+                            choices=[12, 18])
+
     sp = sub.add_parser("compressor-setup")
-    sp.add_argument("--circom-dir", dest="circom_dir", required=True)
-    sp.add_argument("--entry", default="verifier.circom")
-    sp.add_argument("--inputs", required=True,
-                    help="circuit inputs JSON (e.g. the zkin file)")
-    sp.add_argument("--out-prefix", dest="out_prefix", required=True)
-    sp.add_argument("--force-nbits", dest="force_nbits", type=int)
-    sp.add_argument("--cols", type=int, default=12, choices=[12, 18])
+    circuit_setup_args(sp, fr=False)
     sp.set_defaults(fn=cmd_compressor_setup)
 
+    def exec_args(sp):
+        sp.add_argument("--exec", dest="exec_file", required=True)
+        sp.add_argument("--wtns", required=True)
+        sp.add_argument("--meta", required=True)
+        sp.add_argument("--commit", required=True)
+        sp.add_argument("--publics", required=True)
+
     sp = sub.add_parser("compressor-exec")
-    sp.add_argument("--exec", dest="exec_file", required=True)
-    sp.add_argument("--wtns", required=True)
-    sp.add_argument("--meta", required=True)
+    exec_args(sp)
+    sp.set_defaults(fn=cmd_compressor_exec)
+
+    sp = sub.add_parser("final-setup")
+    circuit_setup_args(sp, fr=True)
+    sp.set_defaults(fn=cmd_final_setup)
+
+    sp = sub.add_parser("final-exec")
+    exec_args(sp)
+    sp.set_defaults(fn=cmd_final_exec)
+
+    sp = sub.add_parser("fflonkinfo")
+    sp.add_argument("--pil-json", dest="pil_json", required=True)
+    sp.add_argument("--field", default="fr", choices=["gl", "fr"])
+    sp.add_argument("--fflonkinfo", default="fflonkinfo.json")
+    sp.add_argument("--expressionsinfo", default="expressionsinfo.json")
+    sp.add_argument("--verifierinfo", default="verifierinfo.json")
+    sp.set_defaults(fn=cmd_fflonkinfo)
+
+    sp = sub.add_parser("fflonk-setup")
+    sp.add_argument("--fflonkinfo", required=True)
+    sp.add_argument("--const", required=True)
+    sp.add_argument("--tau", type=int, help="dev-ptau toxic scalar seed")
+    sp.add_argument("--ptau-size", dest="ptau_size", type=int)
+    sp.add_argument("--max-q-degree", dest="max_q_degree", type=int,
+                    default=0)
+    sp.add_argument("--zkey", default="zkey.json")
+    sp.add_argument("--ptau", default="ptau.json")
+    sp.add_argument("--verificationkey", default="verificationkey.json")
+    sp.set_defaults(fn=cmd_fflonk_setup)
+
+    sp = sub.add_parser("fflonk-prove")
+    sp.add_argument("--zkey", required=True)
+    sp.add_argument("--ptau", required=True)
+    sp.add_argument("--fflonkinfo", required=True)
+    sp.add_argument("--expressionsinfo", required=True)
     sp.add_argument("--commit", required=True)
     sp.add_argument("--publics", required=True)
-    sp.set_defaults(fn=cmd_compressor_exec)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--proof", default="proof.json")
+    sp.add_argument("--out-publics", dest="out_publics",
+                    default="proof.publics.json")
+    sp.add_argument("--chelpers", help="prebuilt .fflonkchelpers.bin — "
+                    "execute stage TACs via the bytecode interpreter")
+    sp.set_defaults(fn=cmd_fflonk_prove)
+
+    sp = sub.add_parser("fflonk-chelpers")
+    sp.add_argument("--fflonkinfo", required=True)
+    sp.add_argument("--expressionsinfo", required=True)
+    sp.add_argument("--out", default="fflonk.chelpers.bin")
+    sp.set_defaults(fn=cmd_fflonk_chelpers)
+
+    sp = sub.add_parser("fflonk-verify")
+    sp.add_argument("--verificationkey", required=True)
+    sp.add_argument("--fflonkinfo", required=True)
+    sp.add_argument("--verifierinfo", required=True)
+    sp.add_argument("--proof", required=True)
+    sp.add_argument("--publics", required=True)
+    sp.set_defaults(fn=cmd_fflonk_verify)
 
     args = p.parse_args(argv)
     args.fn(args)

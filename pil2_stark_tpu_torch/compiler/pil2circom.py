@@ -1045,9 +1045,10 @@ def pil2circom(const_root, stark_info, verifier_info, options=None, index=0):
     options = options or {}
     ss = stark_info["starkStruct"]
     if ss.get("verificationHashType", "GL") != "GL":
-        raise NotImplementedError(
-            "the BN128 verifier circuit (pil2circom_bn128) is not ported yet: "
-            "ROADMAP Queue A 5b"
+        from .pil2circom_bn128 import pil2circom_bn128
+
+        return pil2circom_bn128(
+            const_root, stark_info, verifier_info, options, index
         )
 
     merklehash_inc = (

@@ -32,6 +32,9 @@ def _get_value(ctx, hint, name):
         code = next(
             e for e in ctx.expressions_info["expressionsCode"] if e["expId"] == f["id"]
         )
+        exec_fn = getattr(ctx, "exec_fn", None)
+        if exec_fn is not None:  # field-specific executor (fflonk Fr ctx)
+            return exec_fn(ctx, code["code"])
         return expr_eval.execute_code(ctx, code["code"], "n", ret=True)
     if op == "number":
         return int(f["value"])
@@ -105,20 +108,23 @@ def resolve_hint(ctx, hint) -> None:
     elif name in ("gsum", "gprod"):
         num = _get_value(ctx, hint, "numerator")
         den = _get_value(ctx, hint, "denominator")
+        ops = getattr(ctx, "hint_ops", polutils)
         if name == "gprod":
-            col = polutils.calculate_z(np.asarray(num), np.asarray(den))
+            col = ops.calculate_z(np.asarray(num), np.asarray(den))
         else:
-            col = polutils.calculate_s(num, np.asarray(den))
+            col = ops.calculate_s(num, np.asarray(den))
         ref = _field(hint, "reference")
         ctx.set_pol(ref["id"], col, "n")
         if any(f["name"] == "result" for f in hint["fields"]):
             sv = _field(hint, "result")
-            ctx.subproof_values[sv["id"]] = vf3.to_scalar(col[ctx.N - 1])
+            to_scalar = getattr(ctx, "to_scalar", vf3.to_scalar)
+            ctx.subproof_values[sv["id"]] = to_scalar(col[ctx.N - 1])
             ctx.calculated["subproofValue"][sv["id"]] = True
     elif name == "h1h2":
         fvals = _get_value(ctx, hint, "f")
         tvals = _get_value(ctx, hint, "t")
-        h1, h2 = polutils.calculate_h1h2(_to_list(fvals), _to_list(tvals))
+        ops = getattr(ctx, "hint_ops", polutils)
+        h1, h2 = ops.calculate_h1h2(_to_list(fvals), _to_list(tvals))
         ctx.set_pol(_field(hint, "referenceH1")["id"], h1, "n")
         ctx.set_pol(_field(hint, "referenceH2")["id"], h2, "n")
     else:

@@ -1,7 +1,6 @@
 """Reference-compatible binary artifact formats (the interop layer).
 
-Copy of pil2_stark_tpu/utils/binfile.py without its "exec" file, which
-belongs to the final recursion tier and is not ported yet.  pil2-stark-js
+Copy of pil2_stark_tpu/utils/binfile.py.  pil2-stark-js
 writes its setup artifacts through @iden3/binfileutils containers and
 pilcom raw buffers; this module writes those byte layouts:
 
@@ -16,7 +15,12 @@ pilcom raw buffers; this module writes those byte layouts:
   merklehash_p.js:28-42), whose bytes hash/merkle.write_tree writes;
 - the "cnts" consts file: sections 2-5 = fixed evals (extended), const
   tree, x_n, x_ext (src/stark/stark_constsPolsFile.js:18-96,
-  stark_constsPols_constants.js).
+  stark_constsPols_constants.js);
+- the "exec" final-tier file: sections 2-5 = [nAdds, nSMap] info, adds
+  signal-index pairs u64, adds Fr coefficient pairs (32-byte LE), sMap
+  row-major u64 (src/final/exec_helpers.js:8-188).  Fr values are
+  canonical little-endian 32-byte integers (ffjavascript F.e
+  serialization of a BigInt).
 """
 from __future__ import annotations
 
@@ -187,3 +191,53 @@ def tree_from_consts(width: int, height: int, elements: np.ndarray,
         elements=elements.reshape(height, width).astype(np.uint64),
         levels=merkle.levels_from_nodes(nodes, height),
     )
+
+
+# ---------------------------------------------------------------------------
+# "exec" final-tier file (exec_helpers.js)
+
+EXEC_MAGIC = b"exec"
+_EXEC_INFO, _EXEC_ADDS_IDX, _EXEC_ADDS_FR, _EXEC_SMAP = 2, 3, 4, 5
+_FR_N8 = 32
+
+
+def write_exec_binfile(path: str, plonk_additions, s_map) -> None:
+    """plonk_additions: [(sl, sr, kl, kr)] with kl/kr Fr ints; s_map:
+    list of per-column u64 arrays (column-major), stored row-major."""
+    n_adds = len(plonk_additions)
+    idx = np.zeros((n_adds, 2), dtype=np.uint64)
+    fr = bytearray()
+    for i, (sl, sr, kl, kr) in enumerate(plonk_additions):
+        idx[i, 0], idx[i, 1] = sl, sr
+        fr += int(kl).to_bytes(_FR_N8, "little")
+        fr += int(kr).to_bytes(_FR_N8, "little")
+    smap = np.stack([np.asarray(c, dtype=np.uint64) for c in s_map], axis=1)
+    info = struct.pack("<QQ", n_adds, smap.shape[0])
+    write_bin_file(path, EXEC_MAGIC, 1, [
+        (_EXEC_INFO, info),
+        (_EXEC_ADDS_IDX, idx.astype("<u8").tobytes()),
+        (_EXEC_ADDS_FR, bytes(fr)),
+        (_EXEC_SMAP, smap.reshape(-1).astype("<u8").tobytes()),
+    ], n_sections=5)
+
+
+def read_exec_binfile(path: str, n_cols: int):
+    _, _, sections = read_bin_file(path, EXEC_MAGIC)
+    n_adds, n_smap = struct.unpack_from("<QQ", sections[_EXEC_INFO], 0)
+    idx = np.frombuffer(sections[_EXEC_ADDS_IDX], dtype="<u8").reshape(
+        n_adds, 2)
+    frbuf = sections[_EXEC_ADDS_FR]
+    if len(frbuf) != n_adds * 2 * _FR_N8:
+        raise ValueError(f"{path}: Fr adds section has {len(frbuf)} bytes, "
+                         f"expected {n_adds * 2 * _FR_N8}")
+    adds = []
+    for i in range(n_adds):
+        kl = int.from_bytes(frbuf[i * 64:i * 64 + 32], "little")
+        kr = int.from_bytes(frbuf[i * 64 + 32:i * 64 + 64], "little")
+        adds.append((int(idx[i, 0]), int(idx[i, 1]), kl, kr))
+    smap = np.frombuffer(sections[_EXEC_SMAP], dtype="<u8").astype(np.uint64)
+    if smap.size != n_smap * n_cols:
+        raise ValueError(f"{path}: sMap has {smap.size} words, expected "
+                         f"{n_smap}x{n_cols}")
+    smap = smap.reshape(n_smap, n_cols)
+    return adds, [smap[:, j].copy() for j in range(n_cols)]

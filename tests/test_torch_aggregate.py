@@ -30,7 +30,7 @@ def one_thread():
 @pytest.fixture(scope="module")
 def two_proofs():
     s, _, zkin_a = inner_proof((1, 2))
-    _, _, zkin_b = inner_proof((3, 5))
+    _, _, zkin_b = inner_proof((3, 5), setup=s)
     return s, zkin_a, zkin_b
 
 

@@ -6,7 +6,9 @@ fibonacci_6_split setups (and for fibonacci 2^22 / ext 2^25 with its FRI
 ending at 4 bits, the card's recursion path), the same gadget library,
 and, on the smallest chain's circuit and zkin, the same witness,
 constraints, custom gates and their uses; a corrupted zkin raises in
-both.  A BN128 starkinfo is refused by the port (ROADMAP Queue A 5b)."""
+both.  A BN128 starkinfo with a Goldilocks (four-element) root is refused
+by both packages: the BN128 circuit (tests/test_torch_circom_bn128.py)
+takes one BN254 root."""
 import copy
 
 import numpy as np
@@ -100,8 +102,9 @@ def test_bn128_starkinfo_is_refused(chain):
     s = chain[0]
     info = copy.deepcopy(s["starkInfo"])
     info["starkStruct"]["verificationHashType"] = "BN128"
-    with pytest.raises(NotImplementedError, match="Queue A 5b"):
-        tp2c.emit_circuit_files([1, 2, 3, 4], info, s["verifierInfo"])
+    for p2c in (jp2c, tp2c):
+        with pytest.raises(TypeError, match="not 'list'"):
+            p2c.emit_circuit_files([1, 2, 3, 4], info, s["verifierInfo"])
 
 
 def test_witness_is_canonical(chain):

@@ -310,14 +310,19 @@ def test_recursion_files_hold_the_c12(recursion_dirs):
 
 
 def test_pil2circom_refuses_bn128(recursion_dirs, tmp_path):
+    """ROADMAP hazard 9: both CLIs send a BN128 starkinfo to the BN128
+    circuit, which takes one int root, while a verkey file always loads
+    as a list (and no BN128 verkey can be written: hazard 5), so both
+    refuse it alike."""
     d = recursion_dirs["port"]
     info = json.loads((d / "starkinfo.json").read_text())
     info["starkStruct"]["verificationHashType"] = "BN128"
     si = _w(tmp_path / "si.json", info)
-    with pytest.raises(NotImplementedError, match="Queue A 5b"):
-        port_main(["pil2circom", "--starkinfo", si, "--verifierinfo",
-                   f"{d}/verifierinfo.json", "--verkey", f"{d}/verkey.json",
-                   "-o", str(tmp_path / "c")])
+    vk = _w(tmp_path / "vk.json", {"constRoot": ["12345"]})
+    for main in (jax_main, port_main):
+        with pytest.raises(TypeError, match="not 'list'"):
+            main(["pil2circom", "--starkinfo", si, "--verifierinfo",
+                  f"{d}/verifierinfo.json", "--verkey", vk, "-o", str(tmp_path / "c")])
 
 
 def test_default_device_is_the_card(tmp_path):
@@ -325,3 +330,90 @@ def test_default_device_is_the_card(tmp_path):
         pytest.skip("a CUDA card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_main(["prove", "--model", "fibonacci", "--nbits", "6", "--tmp", str(tmp_path)])
+
+
+# -- the final tier and fflonk: final-setup -> final-exec -> fflonkinfo ->
+# fflonk-setup -> fflonk-prove (-> fflonk-chelpers) -> fflonk-verify ---------
+
+FFLONK_FILES = ["m.pil.json", "m.const.json", "m.exec", "m.wtns.json", "m.meta.json",
+                "m.commit.json", "m.publics.json", "fflonkinfo.json", "expressionsinfo.json",
+                "verifierinfo.json", "zkey.json", "ptau.json", "verificationkey.json",
+                "proof.json", "proof.publics.json", "fflonk.chelpers.bin", "proof2.json"]
+FINAL9_FILES = ["f9.pil.json", "f9.const.json", "f9.exec", "f9.wtns.json", "f9.meta.json",
+                "f9.commit.json", "f9.publics.json"]
+
+
+@pytest.fixture(scope="module")
+def fflonk_dirs(tmp_path_factory):
+    """The Mul3 circuit of tests/test_final.py through the final tier as
+    finalfflonk (6 committed columns) and the fflonk subcommands, each CLI
+    from its own files (64 powers of tau, the least this zkey takes); the
+    second proof goes through the chelpers file.
+    Also final9 of the custom-gate circuit of tests/test_final.py, with
+    the reference's exec binfile."""
+    from test_final import _main_circuit
+    from test_torch_final import MUL3
+
+    tmp = tmp_path_factory.mktemp("fflonk")
+    for name, text in (("mul3", MUL3), ("final9", _main_circuit()["final.circom"])):
+        (tmp / name).mkdir()
+        (tmp / name / "main.circom").write_text(text)
+    mul3_in = _w(tmp / "mul3.json", {"x": 3, "y": 4})
+    f9_in = _w(tmp / "f9.json", {"a": 11, "b": 20})
+    dirs = None
+    for argv in (
+        lambda d: ["final-setup", "--circom-dir", str(tmp / "mul3"), "--entry", "main.circom",
+                   "--inputs", mul3_in, "--out-prefix", f"{d}/m", "--cols", "0",
+                   "--ncommitted", "6"],
+        lambda d: ["final-exec", "--exec", f"{d}/m.exec", "--wtns", f"{d}/m.wtns.json",
+                   "--meta", f"{d}/m.meta.json", "--commit", f"{d}/m.commit.json",
+                   "--publics", f"{d}/m.publics.json"],
+        lambda d: ["fflonkinfo", "--pil-json", f"{d}/m.pil.json",
+                   "--fflonkinfo", f"{d}/fflonkinfo.json",
+                   "--expressionsinfo", f"{d}/expressionsinfo.json",
+                   "--verifierinfo", f"{d}/verifierinfo.json"],
+        lambda d: ["fflonk-setup", "--fflonkinfo", f"{d}/fflonkinfo.json",
+                   "--const", f"{d}/m.const.json", "--tau", "4242", "--ptau-size", "64",
+                   "--zkey", f"{d}/zkey.json",
+                   "--ptau", f"{d}/ptau.json", "--verificationkey", f"{d}/verificationkey.json"],
+        lambda d: ["fflonk-prove", "--zkey", f"{d}/zkey.json", "--ptau", f"{d}/ptau.json",
+                   "--fflonkinfo", f"{d}/fflonkinfo.json",
+                   "--expressionsinfo", f"{d}/expressionsinfo.json",
+                   "--commit", f"{d}/m.commit.json", "--publics", f"{d}/m.publics.json",
+                   "--seed", "7", "--proof", f"{d}/proof.json",
+                   "--out-publics", f"{d}/proof.publics.json"],
+        lambda d: ["fflonk-chelpers", "--fflonkinfo", f"{d}/fflonkinfo.json",
+                   "--expressionsinfo", f"{d}/expressionsinfo.json",
+                   "--out", f"{d}/fflonk.chelpers.bin"],
+        lambda d: ["fflonk-prove", "--zkey", f"{d}/zkey.json", "--ptau", f"{d}/ptau.json",
+                   "--fflonkinfo", f"{d}/fflonkinfo.json",
+                   "--expressionsinfo", f"{d}/expressionsinfo.json",
+                   "--commit", f"{d}/m.commit.json", "--publics", f"{d}/m.publics.json",
+                   "--seed", "7", "--chelpers", f"{d}/fflonk.chelpers.bin",
+                   "--proof", f"{d}/proof2.json", "--out-publics", f"{d}/proof2.publics.json"],
+        lambda d: ["final-setup", "--circom-dir", str(tmp / "final9"), "--entry", "main.circom",
+                   "--inputs", f9_in, "--out-prefix", f"{d}/f9", "--cols", "9", "--ref-exec"],
+        lambda d: ["final-exec", "--exec", f"{d}/f9.exec", "--wtns", f"{d}/f9.wtns.json",
+                   "--meta", f"{d}/f9.meta.json", "--commit", f"{d}/f9.commit.json",
+                   "--publics", f"{d}/f9.publics.json"],
+    ):
+        dirs = _both(tmp, argv, port_extra=())
+    return dirs
+
+
+@pytest.mark.parametrize("name", FFLONK_FILES + FINAL9_FILES)
+def test_final_and_fflonk_file_equals_jax(fflonk_dirs, name):
+    _same_bytes(fflonk_dirs, name)
+
+
+def test_fflonk_verify_accepts_and_rejects_a_changed_public(fflonk_dirs, tmp_path):
+    d = fflonk_dirs["port"]
+    base = ["fflonk-verify", "--verificationkey", f"{d}/verificationkey.json",
+            "--fflonkinfo", f"{d}/fflonkinfo.json", "--verifierinfo", f"{d}/verifierinfo.json",
+            "--proof", f"{d}/proof.json", "--publics"]
+    assert _run(port_main, base + [f"{d}/proof.publics.json"]) == (0, "VALID proof\n")
+    pubs = json.loads((d / "proof.publics.json").read_text())
+    bad = _w(tmp_path / "bad.json", [str(int(pubs[0]) + 1)] + pubs[1:])
+    assert _run(port_main, base + [bad]) == (1, "INVALID proof\n")
+    assert (d / "proof2.json").read_bytes() == (d / "proof.json").read_bytes()
+    assert (d / "f9.exec").read_bytes()[:4] == b"exec"

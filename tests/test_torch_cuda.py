@@ -527,6 +527,37 @@ def test_bn128_proof_on_card_equals_cpu(card, custom):
                            s["verifierInfo"])
 
 
+@pytest.mark.parametrize("case", ["plain", "custom"])
+def test_snark_stark_proof_on_card_equals_cpu(card, case):
+    """The snark path's STARK (chip_smoke.py snark phase): fibonacci 2^6 /
+    ext 2^9 with BN128 trees and 4 queries, plain at arity 16 and custom at
+    arity 4, proved on the default device (the card) equals the CPU's
+    proof and verifies, and both setups give the same BN128 circuit."""
+    import copy
+
+    from pil2_stark_tpu_torch.compiler import pil2circom
+    from pil2_stark_tpu_torch.models import fibonacci
+    from pil2_stark_tpu_torch.stark import catalog, prover, setup, verifier
+
+    pil = catalog.machine_pil("fibonacci", 6)
+    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
+    extra = ({"merkleTreeArity": 16} if case == "plain"
+             else {"merkleTreeArity": 4, "merkleTreeCustom": True})
+    ss = dict(copy.deepcopy(fibonacci.STARK_STRUCT), verificationHashType="BN128", nQueries=4,
+              **extra)
+    out = []
+    for dev in (None, torch.device("cpu")):
+        s = setup.stark_setup(const_cols.buffer, copy.deepcopy(pil), copy.deepcopy(ss),
+                              device=dev)
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                           s["constTree"], (cm_cols.buffer, publics), device=dev)
+        out.append((s["constRoot"], _canon(res["proof"]), res["challenges"],
+                    pil2circom.pil2circom(s["constRoot"], s["starkInfo"], s["verifierInfo"])))
+    assert out[0] == out[1]
+    assert verifier.verify(res["proof"], res["publics"], s["constRoot"], s["starkInfo"],
+                           s["verifierInfo"])
+
+
 def test_cli_prove_files_on_card_equal_cpu(card, tmp_path):
     """python -m pil2_stark_tpu_torch prove on the card (the default
     device) writes the files the same command writes with --device cpu."""

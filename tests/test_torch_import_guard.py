@@ -6,7 +6,9 @@ verifies it on the CPU, the Poseidon VM's
 builders, debug mode, fibv and the global constraints run, the CLI
 proves and verifies fibonacci 2^6 on the CPU, and the multi-device prover
 (parallel/) runs a sharded transform and tree on 4 CPU ranks, and the
-recursion tier's modules are all there and emit their circuits and PIL.  Its sources
+recursion tier's modules are all there and emit their circuits and PIL,
+and so are the BN128 half's (a BN128 verifier circuit emitted; Mul3 set up
+as finalfflonk, proved and verified with fflonk).  Its sources
 name neither package in an import statement, and its entry points refuse
 to fall back to the CPU when no card is there."""
 import pathlib
@@ -94,6 +96,46 @@ assert tier <= set(names), tier - set(names)
 from pil2_stark_tpu_torch.compiler import circom_gadgets, compressor12, pil1_parser as parser
 assert "template" in circom_gadgets.emit_gadget_files()["poseidon.circom"]
 assert parser.compile_pil_source(compressor12._pil_source(4, 3))["nCommitments"] == 12
+# the BN128 half of the tier: its sixteen modules; Mul3 as finalfflonk set
+# up, proved and verified, and a BN128 circuit emitted
+tier = {f"pil2_stark_tpu_torch.{m}" for m in (
+    "ops.fft_bn128", "curve.bn254", "protocol.keccak", "protocol.poly_fr", "protocol.shplonk",
+    "compiler.circom_gadgets_bn128", "compiler.pil2circom_bn128", "final", "final.exec",
+    "final.plonksetup", "fflonk.fr_ctx", "fflonk.fr_hints", "fflonk.chelpers",
+    "fflonk.prover", "fflonk.shkey", "fflonk.verifier")}
+assert tier <= set(names), tier - set(names)
+import random
+from pil2_stark_tpu_torch.compiler import circom_front, pilinfo, pil2circom
+from pil2_stark_tpu_torch.fflonk import prover as fprover, shkey, verifier as fverifier
+from pil2_stark_tpu_torch.final import exec as fexec, plonksetup
+from pil2_stark_tpu_torch.protocol.shplonk import dev_ptau
+mul3 = """pragma circom 2.1.0;
+template Mul3() {
+    signal input x;
+    signal input y;
+    signal output out;
+    signal t1 <== x * y;
+    signal t2 <== t1 * t1 + x + 5;
+    out <== t2 * y;
+}
+component main {public [x]} = Mul3();
+"""
+cc = circom_front.compile_and_witness({"m.circom": mul3}, "m.circom", {"x": 3, "y": 4},
+                                      prime=plonksetup.FR)
+fs = plonksetup.setup(cc, cols=0, options={"nCommitted": 6})
+cm = fexec.exec_witness(cc.witness, fs["plonkAdditions"], fs["sMap"])
+info = pilinfo.pil_info(fs["pil"], stark=False, options={"field": "fr"})
+ptau = dev_ptau(40 * (1 << fs["nBits"]), tau=4242)
+zkey = shkey.fflonk_setup(fs["constPols"], info["pilInfo"], ptau)
+fres = fprover.fflonk_prove(zkey, ptau, info["pilInfo"], info["expressionsInfo"], cm,
+                            [int(cc.witness[i]) for i in range(1, 1 + fs["nPublics"])],
+                            rng=random.Random(7))
+assert fverifier.fflonk_verify(shkey.verification_key(zkey, info["pilInfo"]), info["pilInfo"],
+                               info["verifierInfo"], fres["proof"], fres["publics"])
+bn = dict(copy.deepcopy(fibonacci.STARK_STRUCT), verificationHashType="BN128")
+bs = setup.stark_setup(fibonacci.build(pil["references"], 64)[0].buffer, pil, bn, device="cpu")
+assert "StarkVerifierBN0" in pil2circom.pil2circom(bs["constRoot"], bs["starkInfo"],
+                                                   bs["verifierInfo"])
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("IMPORTED", len(names))
 '''

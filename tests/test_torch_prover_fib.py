@@ -57,8 +57,6 @@ def test_both_verifiers_accept(proofs):
                             ts["starkInfo"], ts["verifierInfo"])
     assert jverifier.verify(tres["proof"], tres["publics"], js["constRoot"],
                             js["starkInfo"], js["verifierInfo"])
-    assert jverifier.verify(tres["proof"], tres["publics"], js["constRoot"],
-                            js["starkInfo"], js["verifierInfo"])
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,7 @@ The JAX package's Merkle trees of 2^11 leaves and more take its jitted
 path, whose XLA compile costs about a minute per shape on the CPU;
 ``jax_host_trees`` sends them through the same module's native C++ host
 path (bit-identical, what it uses below 2^11) for the duration of a test
-module.  Also two reference-side hazards that the port copies, pinned in
+module.  Also three reference-side hazards that the port copies, pinned in
 both packages."""
 import contextlib
 import copy
@@ -51,13 +51,15 @@ def jax_host_trees():
         yield
 
 
-def inner_proof(inputs=(1, 2)):
+def inner_proof(inputs=(1, 2), setup=None):
     """(setup, result, zkin) of fibonacci 2^4 proved by the port on the
-    CPU; the zkin carries the publics."""
+    CPU, from `setup` when given (the setup does not depend on the
+    inputs); the zkin carries the publics."""
     pil = tparser.compile_pil_source(tfib.pil_source(4))
     pil["name"] = "Fibonacci"
     const_cols, cm_cols, publics = tfib.build(pil["references"], 16, list(inputs))
-    s = tsetup.stark_setup(const_cols.buffer, pil, copy.deepcopy(INNER_STRUCT), device="cpu")
+    s = setup or tsetup.stark_setup(const_cols.buffer, pil, copy.deepcopy(INNER_STRUCT),
+                                    device="cpu")
     res = tprover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
                         s["constTree"], (cm_cols.buffer, publics), device="cpu")
     zkin = tp2z.proof2zkin(res["proof"], s["starkInfo"])
@@ -100,3 +102,38 @@ def test_zero_publics_refused_as_in_jax():
         errors.append(str(e.value))
     assert errors[0] == errors[1] == "Global.L1 must be defined"
     assert jc12._pil_source(4, 0) == tc12._pil_source(4, 0)
+
+
+def test_final9_refuses_a_wide_poseidon_as_in_jax():
+    """The final9 (and final6) layout shares 5 state columns among the
+    PoseidonT gate's rounds (final/plonksetup.py _setup_final, after
+    final9_setup.js:131), so a verifier circuit whose custom Merkle trees
+    have arity above 4 (PoseidonT t > 5) cannot reach the final tier; the
+    snark path's custom-gate circuit takes arity 4.  Both packages refuse
+    alike."""
+    from pil2_stark_tpu.compiler import circom_front as jcf
+    from pil2_stark_tpu.final import plonksetup as jplonk
+    from pil2_stark_tpu_torch.compiler import circom_front as tcf
+    from pil2_stark_tpu_torch.final import plonksetup as tplonk
+
+    from test_final import _poseidon_t_template
+
+    src = "pragma circom 2.1.0;\npragma custom_templates;\n" + _poseidon_t_template(17) + """
+template Main() {
+    signal input a;
+    signal output h;
+    component p = PoseidonT(17);
+    p.in[0] <== 0;
+    for (var i = 1; i < 17; i++) { p.in[i] <== a + i; }
+    _ <== p.im;
+    h <== p.out[0];
+}
+component main = Main();
+"""
+    errors = []
+    for cf, plonk in ((jcf, jplonk), (tcf, tplonk)):
+        cc = cf.compile_and_witness({"m.circom": src}, "m.circom", {"a": 5}, prime=plonk.FR)
+        with pytest.raises(ValueError, match="t=17 exceeds the 5 shared state columns") as e:
+            plonk.setup(cc, cols=9)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
