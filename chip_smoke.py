@@ -148,11 +148,12 @@ Phases, each printing one JSON line:
                    with BN128 trees and 4 queries (plain at arity 16,
                    merkleTreeCustom at arity 4) is compiled by the port,
                    set up and proved on the default device (launches
-                   counted over both proves: B1, B3, T1 and T2 must run;
-                   its transforms are single B3 passes and its trees host
-                   Poseidon-BN254) and verified, with
-                   no fixed-column upload; each kernel is held against its
-                   plain version at the path's shapes.  Three worker
+                   counted over both proves, not their setups: B1, B3,
+                   T1 and T2 must run; its transforms are single B3
+                   passes and its trees host Poseidon-BN254) and
+                   verified, with no fixed-column upload; each kernel is
+                   held against its plain version at the path's shapes.
+                   Three worker
                    processes (this script with --snark-worker, at nice 10)
                    then run beside the other phases: for each proof, the same STARK
                    proved on the CPU must equal the card's bit for bit;
@@ -1140,21 +1141,27 @@ def _prove_fibv(name, device, ext):
     return res, setup
 
 
-def _prove_bn128(device, custom):
-    """fibonacci 2^6 with BN128 trees at arity 16 (tests/test_bn128.py:59)
-    set up and proved on `device`: (setup, result, fixed-column uploads of
-    the prove, [(width, height, host seconds)] of each BN128 tree the prove
-    built)."""
-    import copy
+def bn128_struct(**over):
+    """fibonacci.STARK_STRUCT (2^6 / ext 2^9) with BN128 trees and `over`."""
+    from pil2_stark_tpu_torch.models import fibonacci
 
+    return dict(json.loads(json.dumps(fibonacci.STARK_STRUCT)), verificationHashType="BN128",
+                **over)
+
+
+def _prove_bn128(device, ss, counters=()):
+    """fibonacci 2^6 under the BN128 stark struct `ss` compiled by the port,
+    set up and proved on `device`: (setup, result, zkin, fixed-column
+    uploads of the prove, [(width, height, host seconds)] of each BN128
+    tree the prove built, {kernel: launches} of `counters`, zeroed just
+    before the prove and read just after it)."""
     from pil2_stark_tpu_torch.hash import mh
     from pil2_stark_tpu_torch.models import fibonacci
     from pil2_stark_tpu_torch.stark import catalog, prover, setup as stark_setup
+    from pil2_stark_tpu_torch.utils import proof2zkin
 
     pil = catalog.machine_pil("fibonacci", 6)
     const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
-    ss = dict(copy.deepcopy(fibonacci.STARK_STRUCT), verificationHashType="BN128",
-              merkleTreeArity=16, merkleTreeCustom=custom)
     setup = stark_setup.stark_setup(const_cols.buffer, pil, ss, device=device)
     trees = []
     real_merkelize = mh.MerkleHashBN128.merkelize
@@ -1166,13 +1173,18 @@ def _prove_bn128(device, custom):
         return tree
 
     mh.MerkleHashBN128.merkelize = timed_merkelize
+    for c in counters:
+        c.launches = 0
     try:
         with fixed_uploads(const_cols.buffer) as uploads:
             res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
                                setup["constTree"], (cm_cols.buffer, publics), device=device)
     finally:
         mh.MerkleHashBN128.merkelize = real_merkelize
-    return setup, res, uploads[0], trees
+    launches = {c.__name__: c.launches for c in counters}
+    zkin = canon(proof2zkin.proof2zkin(res["proof"], setup["starkInfo"]))
+    zkin["publics"] = [int(p) for p in publics]
+    return setup, res, zkin, uploads[0], trees, launches
 
 
 def phase_small(device):
@@ -1251,8 +1263,9 @@ def phase_small(device):
     # BN128 trees (the final recursion tier): host trees, card transforms
     for custom in (False, True):
         t0 = time.perf_counter()
-        s_gpu, res_gpu, uploads, trees = _prove_bn128(device, custom)
-        s_cpu, res_cpu, _, _ = _prove_bn128("cpu", custom)
+        ss = bn128_struct(merkleTreeArity=16, merkleTreeCustom=custom)
+        s_gpu, res_gpu, _, uploads, trees, _ = _prove_bn128(device, ss)
+        s_cpu, res_cpu, *_ = _prove_bn128("cpu", ss)
         same = (canon(res_gpu["proof"]) == canon(res_cpu["proof"])
                 and res_gpu["challenges"] == res_cpu["challenges"]
                 and s_gpu["constRoot"] == s_cpu["constRoot"])
@@ -2483,32 +2496,10 @@ def phase_recursion(device, counters, started):
 
 
 def snark_struct(case):
-    """fibonacci 2^6 / ext 2^9 with BN128 trees and SNARK_QUERIES queries
-    (the struct of tests/test_circom_bn128.py) for case plain or custom."""
-    from pil2_stark_tpu_torch.models import fibonacci
-
-    return dict(json.loads(json.dumps(fibonacci.STARK_STRUCT)), verificationHashType="BN128",
-                nQueries=SNARK_QUERIES, **SNARK_CASES[case])
-
-
-def snark_proof(case, device):
-    """(setup, result, zkin, fixed-column uploads of the prove) of the snark
-    path's STARK, compiled by the port, set up and proved on `device`."""
-    from pil2_stark_tpu_torch.compiler import pil1_parser
-    from pil2_stark_tpu_torch.models import fibonacci
-    from pil2_stark_tpu_torch.stark import prover, setup as stark_setup
-    from pil2_stark_tpu_torch.utils import proof2zkin
-
-    pil = pil1_parser.compile_pil_source(fibonacci.pil_source(6))
-    pil["name"] = "Fibonacci"
-    const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
-    s = stark_setup.stark_setup(const_cols.buffer, pil, snark_struct(case), device=device)
-    with fixed_uploads(const_cols.buffer) as uploads:
-        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
-                           s["constTree"], (cm_cols.buffer, publics), device=device)
-    zkin = canon(proof2zkin.proof2zkin(res["proof"], s["starkInfo"]))
-    zkin["publics"] = [int(p) for p in publics]
-    return s, res, zkin, uploads[0]
+    """The snark path's struct for case plain or custom: fibonacci 2^6 /
+    ext 2^9 with BN128 trees and SNARK_QUERIES queries (the struct of
+    tests/test_circom_bn128.py)."""
+    return bn128_struct(nQueries=SNARK_QUERIES, **SNARK_CASES[case])
 
 
 def mul_chain(k):
@@ -2534,9 +2525,10 @@ def start_snark(device, counters):
     """The snark path's STARK on the card: fibonacci 2^6 / ext 2^9 with
     BN128 trees (plain at arity 16, custom at arity 4), compiled by the
     port, set up and proved on the default device with the kernels'
-    counters zeroed just before the first prove and read just after the
-    second; both proofs verified, no fixed-column upload; B1, B3, T1 and
-    T2 must have launched (SNARK_KERNELS).  Then the host half starts in
+    counters zeroed just before each prove and read just after it (the
+    setups' launches are not counted), the path's launches the sum over
+    both proves; both proofs verified, no fixed-column upload; B1, B3, T1
+    and T2 must have launched (SNARK_KERNELS).  Then the host half starts in
     processes of their own (snark_worker): one per circuit, and the fflonk
     leg.  Returns the kernel rows at the path's shapes and {procs,
     launches, started}."""
@@ -2550,16 +2542,16 @@ def start_snark(device, counters):
     d = os.path.join(os.path.dirname(os.path.abspath(__file__)), SNARK_DIR)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    for c in counters:
-        c.launches = 0
     cards, steps = {}, {}
+    launches = {c.__name__: 0 for c in counters}
     for case in SNARK_CASES:
         t0 = time.perf_counter()
-        cards[case] = snark_proof(case, None)
+        cards[case] = _prove_bn128(None, snark_struct(case), counters)
         torch.cuda.synchronize()
         steps[case] = {"setup_and_prove_s": time.perf_counter() - t0}
-    launches = {c.__name__: c.launches for c in counters}
-    for case, (s, res, zkin, uploads) in cards.items():
+        for k, n in cards[case][5].items():
+            launches[k] += n
+    for case, (s, res, zkin, uploads, _, _) in cards.items():
         t0 = time.perf_counter()
         steps[case].update(verified=verifier.verify(res["proof"], res["publics"], s["constRoot"],
                                                     s["starkInfo"], s["verifierInfo"]),
@@ -2606,7 +2598,7 @@ def start_snark(device, counters):
     return rows, {"procs": procs, "launches": launches, "started": time.perf_counter()}
 
 
-def snark_worker(d, job, bits=None):
+def snark_worker(d, job):
     """The host half of the snark path, in a process of its own.
 
     plain / custom: the STARK proved again on the CPU must equal the
@@ -2620,7 +2612,7 @@ def snark_worker(d, job, bits=None):
     cut with that reckoning.
 
     fflonk: a chain of multiplications laid out as finalfflonk at
-    2^bits rows (SNARK_FFLONK_BITS unless given) through fflonkinfo, dev_ptau(40 · N),
+    2^SNARK_FFLONK_BITS rows through fflonkinfo, dev_ptau(40 · N),
     fflonk_setup, fflonk_prove(rng=Random(SNARK_SEED)) and fflonk_verify
     (true; a changed public and a changed evaluation false), debug mode
     ([] on the witness, errors on a changed one); then Mul3 through the CLI
@@ -2635,8 +2627,7 @@ def snark_worker(d, job, bits=None):
     peak = PeakRss()
     peak.start()
     t_job = time.perf_counter()
-    out = snark_fflonk(d, int(bits or SNARK_FFLONK_BITS)) if job == "fflonk" else (
-        snark_circuit(d, job))
+    out = snark_fflonk(d) if job == "fflonk" else snark_circuit(d, job)
     out.update(job=job, seconds=time.perf_counter() - t_job, peak_rss_bytes=peak.bytes())
     emit(out)
     return 0 if out["ok"] else 1
@@ -2680,7 +2671,7 @@ def snark_circuit(d, case):
         card = json.load(f)
     out, t0 = {}, time.perf_counter()
     with one_thread():
-        s, res, _, uploads = snark_proof(case, "cpu")
+        s, res, _, uploads, _, _ = _prove_bn128("cpu", snark_struct(case))
     out["cpu_prove_s"] = time.perf_counter() - t0
     out["card_equals_cpu"] = (canon(res["proof"]) == card["proof"]
                               and canon(res["challenges"]) == card["challenges"]
@@ -2752,7 +2743,7 @@ def snark_circuit(d, case):
     return out
 
 
-def snark_fflonk(d, n_bits):
+def snark_fflonk(d):
     import os
     import random
 
@@ -2767,6 +2758,7 @@ def snark_fflonk(d, n_bits):
     from pil2_stark_tpu_torch.protocol.shplonk import dev_ptau
 
     fr = plonksetup.FR
+    n_bits = SNARK_FFLONK_BITS
     out, steps = {"n_bits": n_bits}, {}
 
     def step(name, fn):
