@@ -77,7 +77,9 @@ Phases, each printing one JSON line:
                    stark_setup and prove on the default device (None:
                    the card), and the setup must equal
                    setups/poseidon_vm_20.json; the trace's last states must
-                   equal the host permutation;
+                   equal the host permutation; its verify runs on the host
+                   C++ runtime (runtime/native.py), then once more on the
+                   python-int hashing it replaced (verify_plain_s);
   8b. cli        — the port's CLI (python -m pil2_stark_tpu_torch) on the
                    VM with prove_vm's inputs, its files under the
                    gitignored pil2_stark_tpu_torch/_build/cli/ (removed
@@ -103,15 +105,21 @@ Phases, each printing one JSON line:
                    `verify` in a fresh process; `buildchelpers` on the VM
                    2^20, read back;
   8c. mesh       — the multi-device prover (parallel/) on the VM 2^20 /
-                   ext 2^23 with prove_vm's setup and columns: B2 and B3 at
+                   ext 2^23 with prove_vm's setup and columns, the extended
+                   domain row-sharded through the whole prove: B2 and B3 at
                    one rank's shapes of a mesh of MESH_RANKS (21 × 2^23
-                   and 12 × 2^20 split four ways) against their plain
-                   versions, timed; prove(mesh=) on MESH_RANKS virtual
-                   ranks of this card, cold and warm (phases, each card's
-                   peak, bytes exchanged, fixed-column uploads, launches);
-                   with two or more cards the same over every card in this
-                   process, and one process per card over NCCL (this
-                   script with --mesh-worker); every proof must equal
+                   and 12 × 2^20 split four ways), T1 on the Q and FRI
+                   programs at a shard's rows with their halo (a row base,
+                   signed shifts) and T2 at 2^21 points, against their
+                   plain versions, timed; prove(mesh=) on MESH_RANKS
+                   virtual ranks of this card, cold and warm (phases, each
+                   card's peak, bytes exchanged, fixed-column uploads,
+                   launches: T1 once for the im-pols and once per rank for
+                   Q and FRI, T2 once per rank; each rank's bytes of
+                   extended rows, printed, which must be 1/d of one
+                   device's); with two or more cards the same over every
+                   card in this process, and one process per card over NCCL
+                   (this script with --mesh-worker); every proof must equal
                    prove_vm's byte for byte and verify; a line names the
                    paths that ran and why the others did not;
   9. profile     — one warm prove each of the VM and fibonacci 2^22 under
@@ -172,7 +180,19 @@ Phases, each printing one JSON line:
                    evaluation refused; debug mode), then runs Mul3 through
                    the CLI (final-setup, final-exec, fflonkinfo,
                    fflonk-setup, fflonk-prove, fflonk-verify) and requires
-                   its proof to equal the library's.  At the end the phase
+                   its proof to equal the library's.  The export leg on
+                   the chain's proof: its zkey written and read back
+                   (fflonk/zkey_binfile.py) and proved from again, equal
+                   to the library's proof; the verification key, the
+                   Solidity verifier and the calldata exported, also
+                   through exportverificationkey, exportsolidityverifier
+                   and exportcalldata on Mul3's files (each equal to the
+                   library's); the contract compiled to EVM bytecode and
+                   run (fflonk/evm.py): it must accept the proof and refuse
+                   a corrupted word and a word at the field's modulus, with
+                   its gas; the search optimizer's cost table at the
+                   chain's shape with the MSM/FFT ratio measured on its
+                   powers of tau.  At the end the phase
                    waits for the workers; launches in `["snark"]`.
 Every prove must upload the fixed columns zero times (the const tree keeps
 them on the card; fixed_uploads_per_prove, cold and warm).
@@ -852,13 +872,16 @@ def _ptxas(label, lib="tac"):
     return hit[0] if hit else None
 
 
-def _tac_rows(device, setup_name, programs, setup=None):
+def _tac_rows(device, setup_name, programs, setup=None, ranks=1):
     """T1, the kernel generated for each program, against run_plain on
     random canonical inputs of each program at the prove's size; with its
     ptxas counts and nvcc seconds from its own build, and its SASS per row
     (one trip of the grid-stride loop).  The programs of the committed
     setup `setup_name`, or of `setup` (a stark_setup result) on the path
-    named `setup_name`."""
+    named `setup_name`.  With ranks > 1, at one rank's shape of a mesh: the
+    extN/ranks rows of a shard with the halo its shifts read on either
+    side, launched with a row base and signed shifts (the window), against
+    run_plain's windowed run."""
     import torch
 
     from pil2_stark_tpu_torch.ops import tac_codegen, torch_tac
@@ -874,7 +897,11 @@ def _tac_rows(device, setup_name, programs, setup=None):
         prog = torch_tac.compile_program(code, dom, info, ss["nBits"], ss["nBitsExt"])
         gen = tac_codegen.generate(prog)
         lib = cuda_build.add_generated(gen.source)
-        n = prog.n
+        window, n = None, prog.n
+        if ranks > 1:
+            before, after = torch_tac.halo(prog)
+            window = (before, prog.n // ranks)
+            n = before + window[1] + after  # the rows of the padded block
         sections = {"const": random_field((info["nConstants"], n), 300 + k, device)}
         for i in range(info["nStages"] + (1 if dom == "ext" else 0)):
             sections[f"cm{i + 1}"] = random_field(
@@ -886,8 +913,8 @@ def _tac_rows(device, setup_name, programs, setup=None):
                   "publics": random_field((max(info["nPublics"], 1),), 350 + k, device),
                   "challenges": random_field((len(info["challengesMap"]), 3), 360 + k, device),
                   "evals": random_field((max(len(info["evMap"]), 1), 3), 370 + k, device)}
-        got = torch_tac.run_kernel(prog, inputs)
-        want = torch_tac.run_plain(prog, inputs)
+        got = torch_tac.run_kernel(prog, inputs, window)
+        want = torch_tac.run_plain(prog, inputs, window)
         outs = [(key, got[key], want[key]) for key in ("q", "f") if key in want]
         outs += [(key, got["cm"][key], v) for key, v in want["cm"].items()]
         same = (sorted(got["cm"]) == sorted(want["cm"])
@@ -895,23 +922,28 @@ def _tac_rows(device, setup_name, programs, setup=None):
         err = max([exact_err(a, b) for _, a, b in outs] + [0.0 if same else float("inf")])
         del got, want
         cost = prog.cost()
-        _, launch = torch_tac.prepare_kernel(prog, inputs)
+        _, launch = torch_tac.prepare_kernel(prog, inputs, window)
+        rows_run = n if window is None else window[1]  # the rows computed; n are read
         row = _kernel_row(
             "tac_program", T1_SRC, "pil2_stark_tpu/ops/jax_tac.py:53", err,
-            launch, lambda: torch_tac.run_plain(prog, inputs),
-            cost["gl_muls"] * n * IMAD_PER_GL_MUL,
-            (cost["read_words"] + cost["write_words"]) * n * 8,
-            {"program": which, "dom": dom, "n": n, "instructions": len(code["code"]),
+            launch, lambda: torch_tac.run_plain(prog, inputs, window),
+            cost["gl_muls"] * rows_run * IMAD_PER_GL_MUL,
+            (cost["read_words"] * n + cost["write_words"] * rows_run) * 8,
+            {"program": which, "dom": dom, "n": rows_run, "instructions": len(code["code"]),
              "live_values": prog.n_slots, "segments": len(prog.segments),
-             "columns": gen.n_cols, "scalars": gen.n_scalars, **cost},
+             "columns": gen.n_cols, "scalars": gen.n_scalars, **cost,
+             **({} if window is None else {"window": {"base": window[0], "rows": window[1],
+                                                       "padded_rows": n, "ranks": ranks}})},
             setup_name, reps=20 if n <= 1 << 22 else 5)
         sass = sass_counts(lib, "tac_seg0", [], outer=True)
-        byte_ms = (cost["read_words"] + cost["write_words"]) * n * 8 / HBM_BYTES_PER_S * 1e3
+        byte_ms = ((cost["read_words"] * n + cost["write_words"] * rows_run) * 8
+                   / HBM_BYTES_PER_S * 1e3)
         row.update(note=XLA_FUSION, ratio=row["ms"] / row["bound_ms"], library=lib,
                    byte_bound_ms=byte_ms, ratio_to_byte_bound=row["ms"] / byte_ms,
-                   # Params: n, the row shifts and one address per column
-                   # (tac_codegen.generate refuses above MAX_PARAM_BYTES, 4 KiB)
-                   param_bytes=8 * (1 + max(len(gen.shifts), 1) + gen.n_cols),
+                   # Params: n, the row base and count, the row shifts and one
+                   # address per column (tac_codegen.generate refuses above
+                   # MAX_PARAM_BYTES, 4 KiB)
+                   param_bytes=8 * (3 + max(len(gen.shifts), 1) + gen.n_cols),
                    ptxas={f"tac_seg{s}": _ptxas(f"tac_seg{s}", lib)
                           for s in range(len(prog.segments))},
                    nvcc_s=cuda_build.build_seconds.get(lib),
@@ -1429,6 +1461,16 @@ def phase_prove(device, setup_name, counters, warm=True):
     # one all-gadgets prove: its host hints take about 100 s a prove
     res, out = prove_cold_warm(setup, const_cols.buffer, cm_cols.buffer, publics, prove_device,
                                counters, warm=warm)
+    if compiled:  # the same verify on the python-int hashing the runtime replaced
+        from pil2_stark_tpu_torch.stark import verifier
+
+        t0 = time.perf_counter()
+        with plain_host_hashing():
+            out["verify_plain_ok"] = verifier.verify(
+                res["proof"], res["publics"], setup["constRoot"], setup["starkInfo"],
+                setup["verifierInfo"])
+        out["verify_plain_s"] = time.perf_counter() - t0
+        out["verify_host"] = "runtime/native.py (csrc/host/runtime.cpp)"
     library = {"proof": res["proof"], "publics": res["publics"]}
     if compiled:  # the mesh phase proves the VM again from this setup and these columns
         library.update(setup=setup, columns=(const_cols, cm_cols, publics))
@@ -1445,11 +1487,43 @@ def phase_prove(device, setup_name, counters, warm=True):
     torch.cuda.empty_cache()
     if states_ok is False:
         raise AssertionError(f"the {setup_name} trace is not the permutation")
+    if out.get("verify_plain_ok") is False:
+        raise AssertionError(f"the {setup_name} proof fails the plain host verify")
     if compiled and not all(compiled["equals_committed"].values()):
         raise AssertionError(f"the port's {setup_name} setup differs from the committed one: "
                              f"{compiled['equals_committed']}")
     check_proves(setup_name, out)
     return out["launches"], library
+
+
+@contextlib.contextmanager
+def plain_host_hashing():
+    """The host Merkle paths and transcripts on the python-int permutation
+    (hash/poseidon_gl.permute_int, what they ran on before the host C++
+    runtime) in place of the runtime, to time a verify on both in one run."""
+    import types
+
+    import numpy as np
+
+    from pil2_stark_tpu_torch.hash import merkle, poseidon_gl, transcript
+
+    def linear_hash(rows):
+        return np.array([merkle._sponge_int([int(v) for v in row], poseidon_gl.permute_int)
+                         for row in rows], dtype=np.uint64)
+
+    def merkle_level(level):
+        pairs = np.asarray(level).reshape(-1, 8)
+        return np.array([poseidon_gl.permute_int([int(v) for v in pair] + [0] * 4)[:4]
+                         for pair in pairs], dtype=np.uint64)
+
+    plain = types.SimpleNamespace(permute_int=poseidon_gl.permute_int,
+                                  linear_hash=linear_hash, merkle_level=merkle_level)
+    saved = merkle.native, transcript.native
+    merkle.native = transcript.native = plain
+    try:
+        yield
+    finally:
+        merkle.native, transcript.native = saved
 
 
 def prove_cold_warm(setup, fixed, witness, publics, device, counters, warm=True):
@@ -1538,6 +1612,10 @@ def mesh_prove(mesh, setup, columns, counters, verify=True):
                     torch.cuda.synchronize(card)
         return res, time.perf_counter() - t, uploads[0], mesh.exchanged_bytes
 
+    info = setup["starkInfo"]
+    ext_n = 1 << info["starkStruct"]["nBitsExt"]
+    widths = [info["nConstants"]] + [info["mapSectionsN"].get(f"cm{i + 1}", 0)
+                                     for i in range(info["nStages"] + 1)]
     for c in counters:
         c.launches = 0
     res, cold, uploads_cold, moved_cold = run()
@@ -1561,13 +1639,31 @@ def mesh_prove(mesh, setup, columns, counters, verify=True):
             "phases_peak_bytes_by_card": res_warm["devicePeakBytes"],
             "peak_bytes_by_card": device_peaks,
             "exchanged_bytes_per_prove": [moved_cold, moved_warm],
-            "fixed_uploads_per_prove": [uploads_cold, uploads_warm], "launches": launches}
+            "fixed_uploads_per_prove": [uploads_cold, uploads_warm], "launches": launches,
+            # the bytes of extended rows each rank of this process held (its
+            # rows of every tree; the most a program's halo-padded copy
+            # took), beside what one device holds of the same sections
+            "rank_bytes": res_warm["rankBytes"], "whole_section_bytes": 8 * ext_n * sum(widths),
+            "ranks": mesh.size}
 
 
 def _check_mesh_prove(label, out, want):
+    """A mesh prove's proof is prove_vm's, verifies and is repeatable; it
+    uploads no fixed column, exchanges something, launches every kernel
+    (T1 once for the im-pols on the lead and once per rank for Q and FRI,
+    T2 once per rank), and each rank holds its 1/d of the extended rows:
+    no rank holds a whole extended section."""
+    local = len(out["mesh"]["ranks"])
+    expect = {"tac_program": 1 + 2 * local, "gl_xdiv": local}
     zero = [k for k, v in out["launches"].items() if v == 0]
-    miscounted = {k: (out["launches"][k], v) for k, v in PROVE_LAUNCHES.items()
+    miscounted = {k: (out["launches"][k], v) for k, v in expect.items()
                   if out["launches"].get(k, v) != v}
+    whole, d = out["whole_section_bytes"], out["ranks"]
+    held = out["rank_bytes"]
+    if any(b * d != whole for b in held["sections"]) or \
+            any(b * d > whole * 1.01 for b in held["padded"]):
+        raise AssertionError(f"{label}: a rank holds more than its 1/{d} of the extended rows "
+                             f"({held}, {whole} B on one device)")
     if out["proof_sha256"] != want or not out["repeatable"] or out["verified"] is False:
         raise AssertionError(f"{label}: the mesh proof differs from prove_vm's, is not "
                              f"repeatable or does not verify")
@@ -1583,15 +1679,18 @@ def _check_mesh_prove(label, out, want):
 
 def phase_mesh(device, counters, vm):
     """The multi-device prover on the VM 2^20 / ext 2^23, from prove_vm's
-    setup and columns: B2 and B3 at one rank's shapes of a mesh of
-    MESH_RANKS, held against their plain versions and timed; prove(mesh=)
-    on MESH_RANKS virtual ranks of this card (counters zeroed just before
-    its cold prove and read just after); with two or more cards the same
-    over every card in this process, and one process per card over NCCL
-    (mesh_worker).  Each proof must equal prove_vm's byte for byte, verify,
-    launch every kernel of the path and upload the fixed columns zero
-    times.  A path this machine cannot run is named as not run.  Returns
-    the kernel rows and the virtual mesh's launches."""
+    setup and columns: B2 and B3, T1 on the Q and FRI programs (a shard's
+    rows with its halo, launched with a row base) and T2 at one rank's
+    shapes of a mesh of MESH_RANKS, held against their plain versions and
+    timed; prove(mesh=) on MESH_RANKS virtual ranks of this card (counters
+    zeroed just before its cold prove and read just after); with two or
+    more cards the same over every card in this process, and one process
+    per card over NCCL (mesh_worker).  Each proof must equal prove_vm's
+    byte for byte, verify, launch every kernel of the path and upload the
+    fixed columns zero times, and each rank must hold its 1/d of the
+    extended rows (printed per rank, with each card's peak).  A path this
+    machine cannot run is named as not run.  Returns the kernel rows and
+    the virtual mesh's launches."""
     import torch
 
     from pil2_stark_tpu_torch.parallel import distributed, ntt_sharded
@@ -1600,6 +1699,9 @@ def phase_mesh(device, counters, vm):
     rows = []
     for bits, cols, inverse in VM_PLANAR:
         rows += _ntt_rows(device, bits, cols, inverse, "mesh", ranks=MESH_RANKS)
+    # T1 on the VM's Q and FRI programs and T2 at one rank's rows
+    rows += _tac_rows(device, "mesh", ("q", "fri"), setup=vm["setup"], ranks=MESH_RANKS)
+    rows.append(_xdiv_row(device, VM_BITS - (MESH_RANKS.bit_length() - 1), "mesh"))
     for r in rows:
         emit({"phase": "mesh", **r})
     bad = [(r["name"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
@@ -1610,6 +1712,7 @@ def phase_mesh(device, counters, vm):
     virtual = distributed.proof_mesh(devices=[device] * MESH_RANKS)
     out = mesh_prove(virtual, vm["setup"], vm["columns"], counters)
     emit({"phase": "mesh", "path": "virtual", "setup": VM_SETUP, **out})
+    _print_rank_bytes("virtual", out)
     _check_mesh_prove("virtual", out, want)
     paths["virtual"] = f"ran: {MESH_RANKS} ranks on {device}"
     launches = out["launches"]
@@ -1625,6 +1728,7 @@ def phase_mesh(device, counters, vm):
         cards = distributed.proof_mesh()
         out = mesh_prove(cards, vm["setup"], vm["columns"], counters)
         emit({"phase": "mesh", "path": "cards", "setup": VM_SETUP, **out})
+        _print_rank_bytes("cards", out)
         _check_mesh_prove("cards", out, want)
         paths["cards"] = f"ran: {n_cards} cards in one process"
         torch.cuda.empty_cache()
@@ -1633,6 +1737,18 @@ def phase_mesh(device, counters, vm):
         paths["cards"] = paths["processes_nccl"] = f"not run: {why_not}"
     emit({"phase": "mesh", "paths": paths, "seconds": time.perf_counter() - t0})
     return rows, launches
+
+
+def _print_rank_bytes(label, out):
+    """One line per rank: the bytes of extended rows it holds, and each
+    card's peak."""
+    held = out["rank_bytes"]
+    for i, (rows_b, pad_b) in enumerate(zip(held["sections"], held["padded"])):
+        print(f"mesh {label} rank {out['mesh']['ranks'][i]} #{i}: {rows_b} B of extended "
+              f"rows, {pad_b} B most in a halo-padded copy (one device: "
+              f"{out['whole_section_bytes']} B)", flush=True)
+    for card, peak in sorted(out["peak_bytes_by_card"].items()):
+        print(f"mesh {label} {card}: peak {peak} B", flush=True)
 
 
 def _profile_mesh(mesh, vm):
@@ -1702,18 +1818,20 @@ def _nccl_processes(n_cards, want):
             raise AssertionError(f"mesh worker {rank} failed (exit {p.returncode}): "
                                  f"{stderr[-3000:]}")
         emit({"phase": "mesh", "path": "processes_nccl", **lines[-1]})
+        _print_rank_bytes(f"NCCL process {rank}", lines[-1])
         _check_mesh_prove(f"NCCL process {rank}", lines[-1], want)
     return f"ran: {n_cards} processes, one card each, NCCL"
 
 
 def mesh_worker(rank, world, port):
     """One process of the NCCL mesh: the VM's setup compiled on its card,
+    its const tree split to this process's rank (the whole one dropped),
     prove(mesh=) over every process's card, one JSON line."""
     import torch
 
     from pil2_stark_tpu_torch.compiler import pil1_parser
     from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
-    from pil2_stark_tpu_torch.parallel import distributed
+    from pil2_stark_tpu_torch.parallel import distributed, merkle_sharded
     from pil2_stark_tpu_torch.stark import setup as stark_setup
 
     rank, world = int(rank), int(world)
@@ -1726,6 +1844,9 @@ def mesh_worker(rank, world, port):
         setup = stark_setup.stark_setup(
             columns[0].buffer, pil, gadgets.stark_struct(VM_N_BITS, VM_BITS, n_queries=32))
         mesh = distributed.proof_mesh()
+        # this process keeps its rank's rows of the const tree, not the whole
+        setup["constTree"] = merkle_sharded.shard_tree(setup["constTree"], mesh)
+        torch.cuda.empty_cache()
         out = mesh_prove(mesh, setup, columns, prove_counters(), verify=rank == 0)
         emit({"rank": rank, "card": str(torch.cuda.current_device()), **out})
     finally:
@@ -2751,6 +2872,7 @@ def snark_fflonk(d):
 
     from pil2_stark_tpu_torch.__main__ import main as cli
     from pil2_stark_tpu_torch.compiler import circom_front, pilinfo
+    from pil2_stark_tpu_torch.fflonk import solidity
     from pil2_stark_tpu_torch.fflonk.prover import fflonk_prove
     from pil2_stark_tpu_torch.fflonk.shkey import fflonk_setup, verification_key
     from pil2_stark_tpu_torch.fflonk.verifier import fflonk_verify
@@ -2801,6 +2923,7 @@ def snark_fflonk(d):
     bad = cm.copy()
     bad[5, 2] = (int(bad[5, 2]) + 1) % fr
     out["debug_errors_changed"] = len(fflonk_prove(*args, bad, publics, debug=True))
+    out["export"] = snark_export(d, step, zkey, ptau, info, cm, publics, res, vk)
     out["seconds_by_step"] = steps
 
     # Mul3 through the CLI, in this process; its proof against the library's
@@ -2839,6 +2962,13 @@ def snark_fflonk(d):
                  "--publics", publics_file])
         except SystemExit as e:
             codes.append(e.code)
+    # the three export subcommands on Mul3's files
+    cli(["exportverificationkey", "--zkey", p("zkey.json"), "--fflonkinfo", p("ffi.json"),
+         "--verificationkey", p("vk2.json")])
+    cli(["exportsolidityverifier", "--verificationkey", p("vk.json"), "--fflonkinfo",
+         p("ffi.json"), "--verifierinfo", p("vi.json"), "-o", p("verifier.sol")])
+    cli(["exportcalldata", "--verificationkey", p("vk.json"), "--proof", p("proof.json"),
+         "--publics", p("proof.publics.json"), "-o", p("calldata.txt")])
     out["cli_s"] = time.perf_counter() - t0
     _, s3, cm3, pub3, info3 = machine(MUL3, 0, {"nCommitted": 6})
     ptau3 = dev_ptau(40 << s3["nBits"], tau=SNARK_TAU)
@@ -2848,12 +2978,83 @@ def snark_fflonk(d):
     with open(p("proof.json")) as f:
         out["cli_proof_equals_library"] = json.load(f) == json.loads(
             json.dumps(lib["proof"], default=str))
+    vk3 = verification_key(zkey3, info3["pilInfo"])
+    with open(p("vk.json"), "rb") as a, open(p("vk2.json"), "rb") as b:
+        same_vk = a.read() == b.read()
+    with open(p("verifier.sol")) as a, open(p("calldata.txt")) as b:
+        cli_export = {"verificationkey": same_vk,
+                      "solidity": a.read() == solidity.export_pilfflonk_verifier(
+                          vk3, info3["pilInfo"], info3["verifierInfo"]),
+                      "calldata": b.read() == solidity.export_calldata(
+                          vk3, lib["proof"], lib["publics"])}
+    out["cli_export_equals_library"] = cli_export
     out["cli_verify_exit_codes"] = codes
+    ex = out["export"]
     out["ok"] = (out["check"] and out["verified"] is True and out["changed_public_refused"]
                  and out["changed_evaluation_refused"] and out["debug_errors"] == 0
                  and out["debug_errors_changed"] > 0 and out["cli_proof_equals_library"]
-                 and codes == [0, 1] and np.asarray(cm).shape[0] == 1 << n_bits)
+                 and codes == [0, 1] and np.asarray(cm).shape[0] == 1 << n_bits
+                 and all(cli_export.values()) and ex["zkey_proof_equals_library"]
+                 and ex["evm_accepts"] is True and ex["evm_refuses_corrupted"]
+                 and ex["evm_refuses_oversized"] and ex["search"]["ratio_msm_to_fft"] > 0)
     return out
+
+
+def snark_export(d, step, zkey, ptau, info, cm, publics, res, vk):
+    """The export leg on the fflonk chain's proof: the zkey file written,
+    read back and proved from (the proof must equal the library's), the
+    Solidity verifier and its calldata, the contract compiled to EVM
+    bytecode and run on the proof (accepted), on a corrupted word and on a
+    word at the field's modulus (refused), with the gas of each; and the
+    search optimizer's cost table at the chain's shape with the MSM/FFT
+    ratio measured on its powers of tau (stage-1 columns as nP, the later
+    stages' as the intermediate polynomials)."""
+    import os
+    import random
+
+    from pil2_stark_tpu_torch.fflonk import evm, search_optimizer, solidity, zkey_binfile
+    from pil2_stark_tpu_torch.fflonk.prover import fflonk_prove
+    from pil2_stark_tpu_torch.fflonk.shkey import verification_key
+    from pil2_stark_tpu_torch.ops.fft_bn128 import FR
+
+    ex = {}
+    path = os.path.join(d, "chain.zkey")
+    step("zkey_write", lambda: zkey_binfile.write_zkey(path, zkey, ptau))
+    zk2, ptau2 = step("zkey_read", lambda: zkey_binfile.read_zkey(path))
+    res2 = step("prove_from_zkey", lambda: fflonk_prove(
+        zk2, ptau2, info["pilInfo"], info["expressionsInfo"], cm, publics,
+        rng=random.Random(SNARK_SEED)))
+    ex["zkey_bytes"] = os.path.getsize(path)
+    ex["zkey_proof_equals_library"] = (
+        json.dumps(res2["proof"], default=str) == json.dumps(res["proof"], default=str)
+        and verification_key(zk2, info["pilInfo"]) == vk)
+    vargs = (vk, info["pilInfo"], info["verifierInfo"])
+    contract = step("export_solidity", lambda: solidity.export_pilfflonk_verifier(*vargs))
+    calldata = step("export_calldata", lambda: solidity.export_calldata(vk, res["proof"],
+                                                                         res["publics"]))
+    words = [int(w, 16) for w in json.loads(f"[{calldata}]")[0]]
+    pubs = [int(x) % FR for x in res["publics"]]
+    ex.update(contract_bytes=len(contract), calldata_words=len(words))
+    ok, gas = step("evm_run", lambda: evm.run_verifier(*vargs, words, pubs))
+    bad = list(words)
+    bad[-3] = (bad[-3] + 1) % FR
+    ok_bad, gas_bad = evm.run_verifier(*vargs, bad, pubs)
+    big = list(words)
+    big[-1] = FR
+    ok_big, gas_big = evm.run_verifier(*vargs, big, pubs)
+    ex.update(evm_accepts=ok, evm_gas=gas, evm_refuses_corrupted=ok_bad is False,
+              evm_gas_corrupted=gas_bad, evm_refuses_oversized=ok_big is False,
+              evm_gas_oversized=gas_big)
+    power = zkey["power"]
+    ratio = step("msm_fft_ratio", lambda: search_optimizer.ratio_msm_to_fft(ptau, power,
+                                                                            iterations=2))
+    cm_map = info["pilInfo"]["cmPolsMap"]
+    n_p = sum(1 for c in cm_map if c["stage"] == 1)
+    table = search_optimizer.fflonk_cost_table(3, 10, power, len(cm_map) - n_p, n_p, ratio)
+    ex["search"] = {"power": power, "n_p": n_p, "n_intermediate": len(cm_map) - n_p,
+                    "ratio_msm_to_fft": ratio, "table": table,
+                    "best": min(table, key=lambda row: row["cost"])}
+    return ex
 
 
 def phase_snark(started):
@@ -2884,6 +3085,14 @@ def phase_snark(started):
             continue
         results[job] = lines[-1]
         emit({"phase": "snark", "step": job, **lines[-1]})
+        if job == "fflonk":
+            ex = lines[-1]["export"]
+            print(f"fflonk export at 2^{lines[-1]['n_bits']}: zkey {ex['zkey_bytes']} B, "
+                  f"contract {ex['contract_bytes']} B, EVM gas {ex['evm_gas']} accepted; "
+                  f"{ex['evm_gas_corrupted']} (corrupted word) and {ex['evm_gas_oversized']} "
+                  f"(word at the modulus) refused; MSM/FFT ratio "
+                  f"{ex['search']['ratio_msm_to_fft']}, best degP "
+                  f"{ex['search']['best']['degP']}", flush=True)
     emit({"phase": "snark", "waited_s": time.perf_counter() - t_phase,
           "workers_s": time.perf_counter() - started["started"]})
     if failed:

@@ -32,6 +32,12 @@ so a proof is verified inside a C12 or C18 machine that `prove
   fflonk-chelpers  fflonkinfo -> .fflonkchelpers.bin (flattened stage TACs)
   fflonk-verify    verification key + proof -> accept (exit 0) / reject (exit 1)
 
+and its export leg (fflonk/main_export*.js):
+
+  exportverificationkey  zkey + fflonkinfo -> verification key
+  exportsolidityverifier verification key -> Solidity verifier contract
+  exportcalldata         verification key + proof -> the contract's calldata
+
 Every file equals the JAX package's for the same arguments.  ``--device``
 takes the place of the JAX CLI's ``--backend``: by default the card
 (``prove``, ``buildconsttree`` and ``pilverify`` raise when there is none),
@@ -39,9 +45,7 @@ takes the place of the JAX CLI's ``--backend``: by default the card
 extends and Merkelizes on the device, as stark.setup.load_setup does.
 ``pil2circom`` sends a BN128 starkinfo to the BN128 circuit, as the JAX
 CLI does; as there, a verkey file holds no BN128 root, so that call fails
-and the BN128 circuit is emitted through the library.  The export
-subcommands (exportverificationkey, exportsolidityverifier,
-exportcalldata) are not ported yet.
+and the BN128 circuit is emitted through the library.
 
 Artifact containers are the JAX package's own formats (.npy for u64
 buffers, JSON with stringified big ints, the PSTC consts container).
@@ -535,6 +539,46 @@ def cmd_fflonk_verify(args):
     sys.exit(0 if ok else 1)
 
 
+def cmd_exportverificationkey(args):
+    """fflonk/main_exportVerificationKey.js."""
+    from .fflonk.shkey import verification_key
+    from .utils import serialization
+
+    zkey = serialization.load_json(args.zkey)
+    fflonk_info = serialization.load_json(args.fflonkinfo)
+    serialization.dump_json(verification_key(zkey, fflonk_info),
+                            args.verificationkey)
+    print(f"wrote {args.verificationkey}")
+
+
+def cmd_exportsolidityverifier(args):
+    """fflonk/main_exportSolidityVerifier.js: generated contract text."""
+    from .fflonk import solidity
+    from .utils import serialization
+
+    vk = serialization.load_json(args.verificationkey)
+    fflonk_info = serialization.load_json(args.fflonkinfo)
+    verifier_info = serialization.load_json(args.verifierinfo)
+    text = solidity.export_pilfflonk_verifier(vk, fflonk_info, verifier_info)
+    with open(args.out, "w") as f:
+        f.write(text)
+    print(f"wrote {args.out} ({len(text)} bytes)")
+
+
+def cmd_exportcalldata(args):
+    """fflonk/main_exportCalldata.js."""
+    from .fflonk import solidity
+    from .utils import serialization
+
+    vk = serialization.load_json(args.verificationkey)
+    proof = _load_fflonk_proof(args.proof)
+    publics = [int(x) for x in serialization.load_json(args.publics)]
+    calldata = solidity.export_calldata(vk, proof, publics)
+    with open(args.out, "w") as f:
+        f.write(calldata)
+    print(f"wrote {args.out}")
+
+
 # ---------------------------------------------------------------------------
 # split setup pipeline (main_preparepil.js / main_genpilcode.js /
 # main_calculateimpols.js)
@@ -800,6 +844,26 @@ def main(argv=None):
     sp.add_argument("--proof", required=True)
     sp.add_argument("--publics", required=True)
     sp.set_defaults(fn=cmd_fflonk_verify)
+
+    sp = sub.add_parser("exportverificationkey")
+    sp.add_argument("--zkey", required=True)
+    sp.add_argument("--fflonkinfo", required=True)
+    sp.add_argument("--verificationkey", default="verificationkey.json")
+    sp.set_defaults(fn=cmd_exportverificationkey)
+
+    sp = sub.add_parser("exportsolidityverifier")
+    sp.add_argument("--verificationkey", required=True)
+    sp.add_argument("--fflonkinfo", required=True)
+    sp.add_argument("--verifierinfo", required=True)
+    sp.add_argument("-o", "--out", default="verifier.sol")
+    sp.set_defaults(fn=cmd_exportsolidityverifier)
+
+    sp = sub.add_parser("exportcalldata")
+    sp.add_argument("--verificationkey", required=True)
+    sp.add_argument("--proof", required=True)
+    sp.add_argument("--publics", required=True)
+    sp.add_argument("-o", "--out", default="calldata.txt")
+    sp.set_defaults(fn=cmd_exportcalldata)
 
     args = p.parse_args(argv)
     args.fn(args)

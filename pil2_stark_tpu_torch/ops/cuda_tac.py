@@ -61,7 +61,7 @@ def program_library(gen) -> ctypes.CDLL:
     if lib is None:
         lib = cuda_build.lib(cuda_build.add_generated(gen.source))
         vp, cll = ctypes.c_void_p, ctypes.c_longlong
-        lib.tac_run.argtypes = [vp, vp, vp, cll, vp]
+        lib.tac_run.argtypes = [vp, vp, vp, cll, cll, cll, vp]
         lib.tac_run.restype = ctypes.c_int
         lib.tac_layout.argtypes = [vp]
         lib.tac_layout.restype = ctypes.c_int
@@ -74,13 +74,17 @@ def program_library(gen) -> ctypes.CDLL:
     return lib
 
 
-def tac_program(gen, cols, scalars: torch.Tensor, n: int) -> None:
+def tac_program(gen, cols, scalars: torch.Tensor, n: int, base: int = 0, rows=None,
+                shifts=None) -> None:
     """Run the generated program `gen` (tac_codegen.Generated) on rows
-    0..n-1: `cols` holds the device address of every column it names
-    (written buffers included), `scalars` the scalar table (its first
-    ``gen.n_base_scalars`` entries; the launch fills the rest in place).
-    Writes go to the addresses in `cols`.  One kernel launch per segment,
-    after one single-thread launch for the table when it derives values."""
+    [base, base + rows) of columns of n rows (default all n): `cols` holds
+    the device address of every column it names (written buffers included),
+    `scalars` the scalar table (its first ``gen.n_base_scalars`` entries;
+    the launch fills the rest in place), `shifts` the row shifts (default
+    ``gen.shifts``, taken mod n; a shard's launch passes them signed, and
+    then no row it computes may read outside [0, n)).  Writes go to the
+    addresses in `cols`.  One kernel launch per segment, after one
+    single-thread launch for the table when it derives values."""
     _check(scalars, "tac_program scalars")
     if len(cols) != gen.n_cols:
         raise ValueError(f"tac_program: {len(cols)} column addresses, the program names "
@@ -88,15 +92,24 @@ def tac_program(gen, cols, scalars: torch.Tensor, n: int) -> None:
     if scalars.numel() != gen.n_scalars:
         raise ValueError(f"tac_program: a table of {scalars.numel()} scalars, the program "
                          f"takes {gen.n_scalars}")
-    if not 1 <= n < 1 << 40:
-        raise ValueError(f"tac_program: {n} rows")
+    rows = n - base if rows is None else rows
+    shifts = gen.shifts if shifts is None else tuple(shifts)
+    if not 1 <= n < 1 << 40 or base < 0 or rows < 1 or base + rows > n:
+        raise ValueError(f"tac_program: rows [{base}, {base + rows}) of {n}")
+    if len(shifts) != len(gen.shifts):
+        raise ValueError(f"tac_program: {len(shifts)} shifts, the program takes "
+                         f"{len(gen.shifts)}")
+    if (base, rows) != (0, n) and shifts and (base + min(shifts) < 0
+                                              or base + rows - 1 + max(shifts) >= n):
+        raise ValueError(f"tac_program: shifts {shifts} read outside the {n} rows from "
+                         f"rows [{base}, {base + rows})")
     lib = program_library(gen)
     c_cols = (ctypes.c_longlong * max(len(cols), 1))(*cols)
-    c_shifts = (ctypes.c_longlong * max(len(gen.shifts), 1))(*gen.shifts)
+    c_shifts = (ctypes.c_longlong * max(len(shifts), 1))(*shifts)
     with torch.cuda.device(scalars.device):
         rc = lib.tac_run(ctypes.cast(c_cols, ctypes.c_void_p),
                          ctypes.cast(c_shifts, ctypes.c_void_p), scalars.data_ptr(), n,
-                         _stream(scalars))
+                         base, rows, _stream(scalars))
     if rc != 0:
         raise RuntimeError(f"tac_program {gen.digest} launch failed: CUDA error {rc}")
     tac_program.launches += gen.n_segments

@@ -18,6 +18,13 @@ register.  What a run sets is passed at launch: n, the row shifts
 scalar table in ``__constant__`` memory.  So two setups whose programs differ
 only in n and shifts (all_8 and all_20) share one build.
 
+A launch computes rows [base, base + rows) of columns of n rows (``p.base``,
+``p.rows``; a whole run is base 0, rows n).  A mesh's shard runs with a
+row base: its columns are the shard's rows with a halo of the rows its
+shifts reach on either side (n = halo + shard + halo), the shifts are
+passed signed (a backward opening negative), and the launch computes the
+shard's rows alone, so no read wraps (ops/torch_tac.py ``halo``).
+
 Bound on the H100: bytes for the committed programs (each input column read
 once, each output written once; at most a few GL products per word moved),
 though the all-gadgets Q and FRI programs issue more instructions per row
@@ -93,7 +100,7 @@ def _generate(prog) -> Generated:
     shifts = _shift_table(prog)
     n_cols = len(prog.columns)
     n_base = sum(count * width for _, count, width in prog.scalar_groups.values())
-    param_bytes = 8 * (1 + max(len(shifts), 1) + n_cols)
+    param_bytes = 8 * (3 + max(len(shifts), 1) + n_cols)
     if param_bytes > MAX_PARAM_BYTES:
         raise ValueError(f"T1: {n_cols} columns and {len(shifts)} shifts need {param_bytes} B "
                          f"of kernel parameters, more than {MAX_PARAM_BYTES}")
@@ -295,7 +302,9 @@ constexpr int kThreads = {threads};
 constexpr int kMinBlocks = {min_blocks};  // blocks per SM the launch bound asks for
 
 struct Params {{
-  long long n;
+  long long n;     // rows of every column: the stride of its components, the wrap
+  long long base;  // the first row the launch computes
+  long long rows;  // the rows it computes
   long long sh[{sh_len}];
   uint64_t* col[{c_len}];
 }};
@@ -314,6 +323,8 @@ __device__ __forceinline__ void derive(uint64_t* t) {{
 
 void fill(Params& p, const long long* cols, const long long* shifts, long long n) {{
   p.n = n;
+  p.base = 0;
+  p.rows = n;
   p.sh[0] = 0;
   for (int k = 0; k < kNumShifts; ++k) p.sh[k] = shifts[k];
   for (int c = 0; c < kNumCols; ++c) p.col[c] = reinterpret_cast<uint64_t*>(cols[c]);
@@ -330,8 +341,9 @@ namespace {{
 #define TAC_KERNEL(k)                                                                 \\
   __global__ void __launch_bounds__(kThreads, kMinBlocks) tac_seg##k(const Params p) {{ \\
     const long long step = (long long)gridDim.x * blockDim.x;                         \\
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < p.n;      \\
-         i += step)                                                                   \\
+    const long long end = p.base + p.rows;                                            \\
+    for (long long i = p.base + (long long)blockIdx.x * blockDim.x + threadIdx.x;       \\
+         i < end; i += step)                                                          \\
       row_seg##k(p, i);                                                               \\
   }}
 TAC_SEGMENTS(TAC_KERNEL)
@@ -356,7 +368,7 @@ cudaError_t launch(Kernel kernel, const Params& p, cudaStream_t stream) {{
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  long long blocks = (p.n + kThreads - 1) / kThreads;
+  long long blocks = (p.rows + kThreads - 1) / kThreads;
   const long long resident = (long long)per_sm * sm_count();
   if (blocks > resident) blocks = resident;
   kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(p);
@@ -377,18 +389,21 @@ extern "C" int tac_layout(long long* out) {{
   return 0;
 }}
 
-// Every segment in order on `stream`: cols holds the device address of
-// each column (written buffers included), shifts each row shift, scalars
-// the device address of the scalar table (kNumScalars words, the first
-// kNumBase filled; derive() fills the rest in place).  The table goes to
-// __constant__ memory on the same stream first, so runs of one library are
-// ordered by their stream.
+// Every segment in order on `stream`, over rows [base, base + rows) of
+// columns of n rows: cols holds the device address of each column (written
+// buffers included), shifts each row shift, scalars the device address of
+// the scalar table (kNumScalars words, the first kNumBase filled; derive()
+// fills the rest in place).  The table goes to __constant__ memory on the
+// same stream first, so runs of one library are ordered by their stream.
 extern "C" int tac_run(const long long* cols, const long long* shifts, void* scalars,
-                       long long n, void* stream) {{
-  if (n <= 0 || n >= (1LL << 40)) return (int)cudaErrorInvalidValue;
+                       long long n, long long base, long long rows, void* stream) {{
+  if (n <= 0 || n >= (1LL << 40) || base < 0 || rows <= 0 || base + rows > n)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Params p;
   fill(p, cols, shifts, n);
+  p.base = base;
+  p.rows = rows;
   cudaError_t e = cudaSuccess;
   if (kNumScalars > kNumBase) {{
     tac_derive<<<1, 1, 0, s>>>(reinterpret_cast<uint64_t*>(scalars));

@@ -26,6 +26,11 @@ computation, which frees dead values and fuses the chain; here
     cut there into segments run one after another; values live across the
     cut are stored to carry buffers at the end of one segment and loaded
     back at the start of the next.
+
+A run may cover a window of rows (``window=(base, rows)``): a mesh's shard
+passes its rows with the ``halo`` its shifts reach on either side, and the
+program computes the shard's rows alone, each shift taken as the signed
+offset prime·2^extendBits, so that no read wraps.
 """
 from __future__ import annotations
 
@@ -134,14 +139,16 @@ def make_executor(code_obj, dom: str, pil_info: dict, n_bits: int, ext_bits: int
     Output: {"q": (d, N), "f": (3, N), "cm": {(section, offset, dim): (d, N)}}
     for whatever the program writes.  CUDA inputs run kernel T1 (its build
     at first use, unless build_programs made it), CPU inputs its plain
-    version.
+    version.  fn(inputs, window=(base, rows)) runs the rows [base, base +
+    rows) of inputs of base + rows + halo rows and returns outputs of
+    `rows` rows.
     """
     prog = compile_program(code_obj, dom, pil_info, n_bits, ext_bits)
 
-    def fn(inputs):
+    def fn(inputs, window=None):
         if inputs["x"].device.type == "cpu":
-            return run_plain(prog, inputs)
-        return run_kernel(prog, inputs)
+            return run_plain(prog, inputs, window)
+        return run_kernel(prog, inputs, window)
 
     return fn
 
@@ -379,26 +386,70 @@ def _column_source(ref, inputs):
     raise ValueError(f"Invalid column {ref}")
 
 
-def _outputs(prog: Program, bufs) -> dict:
+def _outputs(prog: Program, bufs, window=None) -> dict:
     out = {"cm": {}}
     for b, (key, _) in enumerate(prog.buffers):  # the last write of a key wins
+        v = bufs[b]
+        if window is not None and key[0] != "carry":
+            v = v[:, window[0]:window[0] + window[1]].contiguous()
         if key in ("q", "f"):
-            out[key] = bufs[b]
+            out[key] = v
         elif key[0] == "cm":
-            out["cm"][key[1:]] = bufs[b]
+            out["cm"][key[1:]] = v
     return out
+
+
+def signed_shift(shift: int, n: int) -> int:
+    """A row shift (taken mod n) as the signed offset nearest 0."""
+    return shift - n if shift > n // 2 else shift
+
+
+def halo(prog: Program) -> tuple:
+    """(rows before, rows after) that a window of the program's rows reads
+    beyond itself: the largest backward and forward signed shift of its
+    column reads.  A program that writes through a shift, or reads a
+    written buffer through one, has no windowed run: it raises."""
+    before = after = 0
+    for _, _, dest, srcs in prog.ins:
+        if dest[0] == "col" and dest[3]:
+            raise ValueError("a windowed run writes through no row shift")
+        for o in srcs:
+            if o[0] != "col" or not o[3]:
+                continue
+            if prog.columns[o[1]][0] == "buf":
+                raise ValueError("a windowed run reads no written buffer through a row shift")
+            s = signed_shift(o[3], prog.n)
+            before, after = max(before, -s), max(after, s)
+    return before, after
+
+
+def _rows(prog: Program, inputs, window) -> int:
+    """The rows of the inputs' columns: prog.n for a whole run, base +
+    rows + the halo after for a window."""
+    n = inputs["x"].shape[-1]
+    if window is None:
+        if n != prog.n:
+            raise ValueError(f"inputs of {n} rows for a program of {prog.n}")
+        return n
+    base, rows = window
+    before, after = halo(prog)
+    if base < before or base + rows + after > n:
+        raise ValueError(f"window rows [{base}, {base + rows}) of {n} miss the halo "
+                         f"({before} before, {after} after)")
+    return n
 
 
 # ---------------------------------------------------------------------------
 # T1's plain version
 
 
-def run_plain(prog: Program, inputs) -> dict:
+def run_plain(prog: Program, inputs, window=None) -> dict:
     """The compiled program instruction by instruction over whole columns
     with torch_f3 ops; a slot holds a (d, N) tensor, or (d, 1) for a value
-    of scalars only."""
+    of scalars only.  With a window, over every row of the inputs with the
+    shifts signed, then cut to the window's rows."""
     device = inputs["x"].device
-    n = prog.n
+    n = _rows(prog, inputs, window)
     table = _scalar_table(prog, inputs, torch.tensor(prog.numbers, dtype=torch.int64,
                                                      device=device))
     bufs = [None] * len(prog.buffers)
@@ -416,6 +467,8 @@ def run_plain(prog: Program, inputs) -> dict:
         else:
             t, row = _column_source(ref, inputs)
             v = t[row: row + d]
+        if window is not None:
+            shift = signed_shift(shift, prog.n)
         return v if shift == 0 else torch.roll(v, -shift, dims=1)
 
     for op, _, dest, srcs in prog.ins:
@@ -439,7 +492,7 @@ def run_plain(prog: Program, inputs) -> dict:
                                               dtype=torch.int64, device=device)])
         v = res.expand(d, n).contiguous()
         bufs[prog.columns[c][1]] = torch.roll(v, shift, dims=1) if shift else v
-    return _outputs(prog, bufs)
+    return _outputs(prog, bufs, window)
 
 
 # ---------------------------------------------------------------------------
@@ -455,33 +508,39 @@ def _check_column(t: torch.Tensor, row: int, d: int, n: int, device, what: str):
                          f"[{row}, {row + d}) of {n} words")
 
 
-def run_kernel(prog: Program, inputs) -> dict:
+def run_kernel(prog: Program, inputs, window=None) -> dict:
     """The compiled program on kernel T1, one launch per segment."""
-    bufs, launch = prepare_kernel(prog, inputs)
+    bufs, launch = prepare_kernel(prog, inputs, window)
     launch()
-    return _outputs(prog, bufs)
+    return _outputs(prog, bufs, window)
 
 
-def prepare_kernel(prog: Program, inputs):
+def prepare_kernel(prog: Program, inputs, window=None):
     """(written buffers, a function that launches every segment): the
     column addresses, scalar table and output buffers T1 needs, made once
-    so that the launches can be timed alone."""
-    gen, bufs, ptrs, table = kernel_args(prog, inputs)
+    so that the launches can be timed alone.  A window launches with a row
+    base and the signed shifts."""
+    gen, bufs, ptrs, table = kernel_args(prog, inputs, window)
+    n = inputs["x"].shape[-1]
+    if window is None:
+        base, rows, shifts = 0, n, gen.shifts
+    else:
+        (base, rows), shifts = window, [signed_shift(s, prog.n) for s in gen.shifts]
 
     def launch():
-        cuda_tac.tac_program(gen, ptrs, table, prog.n)
+        cuda_tac.tac_program(gen, ptrs, table, n, base, rows, shifts)
 
     return bufs, launch
 
 
-def kernel_args(prog: Program, inputs):
+def kernel_args(prog: Program, inputs, window=None):
     """(generated program, written buffers, column addresses, scalar
     table): what a run of T1 takes, on the inputs' device.  The addresses
     are those of every column the program names, in ``prog.columns``
     order, each checked against the rows the program reads; the table has
     room for the values the generated code derives from it."""
     device = inputs["x"].device
-    n = prog.n
+    n = _rows(prog, inputs, window)
     gen = tac_codegen.generate(prog)
     numbers = prog._kernel.get(str(device))
     if numbers is None:
@@ -531,33 +590,42 @@ def _small(values, shape, device):
     return gl.from_u64(arr, device)
 
 
-def pack_inputs(ctx, dom: str):
+def pack_inputs(ctx, dom: str, shard=None):
     """A ProverCtx's device buffers for make_executor.  Sections already on
     the device (ctx.dsections) pass as they are; a stage section that exists
     only on the host (the current stage's hint outputs) is uploaded
-    transposed to the planar layout."""
-    device = ctx.device
-    sections = dict(ctx.dsections[dom])
-    for i in range(ctx.pil_info["nStages"] + (1 if dom == "ext" else 0)):
-        name = f"cm{i + 1}"
-        if name in sections:
-            continue
-        buf = ctx.buffers.get(f"{name}_{dom}")
-        if buf is not None:
-            sections[name] = gl.from_u64(np.ascontiguousarray(buf.T), device)
+    transposed to the planar layout.  shard: one mesh rank's own rows on
+    its device, {"sections", "x", "Zi", "xDivXSubXi"} (each with the halo
+    its window reads), which take the place of the context's; the scalars
+    are copied to that device."""
+    if shard is not None:
+        device = shard["x"].device
+        sections = shard["sections"]
+    else:
+        device = ctx.device
+        sections = dict(ctx.dsections[dom])
+        for i in range(ctx.pil_info["nStages"] + (1 if dom == "ext" else 0)):
+            name = f"cm{i + 1}"
+            if name in sections:
+                continue
+            buf = ctx.buffers.get(f"{name}_{dom}")
+            if buf is not None:
+                sections[name] = gl.from_u64(np.ascontiguousarray(buf.T), device)
     publics = [int(p or 0) % gl64.P_INT for p in ctx.publics]
     challenges = [list(c) for stage in ctx.challenges for c in stage] or [[0, 0, 0]]
     evals = [list(e) for e in ctx.evals] or [[0, 0, 0]]
     subproof_values = [list(f3.as3(v)) for v in ctx.subproof_values] or [[0, 0, 0]]
     inputs = {
         "sections": sections,
-        "x": ctx.dx[dom],
+        "x": ctx.dx[dom] if shard is None else shard["x"],
         "publics": _small(publics or [0], (-1,), device),
         "challenges": _small(challenges, (-1, 3), device),
         "evals": _small(evals, (-1, 3), device),
         "subproofValues": _small(subproof_values, (-1, 3), device),
     }
-    if dom == "ext":
+    if shard is not None:
+        inputs["Zi"], inputs["xDivXSubXi"] = shard["Zi"], shard["xDivXSubXi"]
+    elif dom == "ext":
         inputs["Zi"] = ctx.dZi
         inputs["xDivXSubXi"] = ctx.dxdiv
     return inputs

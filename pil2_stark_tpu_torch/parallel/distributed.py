@@ -162,6 +162,47 @@ class Mesh:
                             {(s, t): shape for t in self.local_ranks for s in ranks})
         return [[got[(s, t)] for s in ranks] if t in self.local_ranks else None for t in ranks]
 
+    def halos(self, arrays: list, before: int, after: int) -> dict:
+        """The rows around each rank's block of the sharded (C_j, N) arrays
+        `arrays` that a window of its rows reads: {rank: (the `before` rows
+        that precede its block, the `after` rows that follow it)} for every
+        rank this process drives, each a (Σ C_j, rows) stack of the arrays
+        in order.  The domain wraps: rank 0's rows before are the last
+        rank's last rows.  One exchange; a pair of neighbours sends both
+        edges in one block."""
+        d = self.size
+        local = self.local_ranks[0]
+        width = sum(a[local].shape[0] for a in arrays)
+        b = arrays[0][local].shape[1]
+        if before > b or after > b:
+            raise ValueError(f"halos of {before} and {after} rows around blocks of {b}")
+
+        def rows(s, t):  # what s sends t: its last rows, then its first rows
+            return ((before if s == (t - 1) % d else 0), (after if s == (t + 1) % d else 0))
+
+        sends, shapes = {}, {}
+        for t in range(d):
+            for s in {(t - 1) % d, (t + 1) % d}:
+                last, first = rows(s, t)
+                if last + first == 0:
+                    continue
+                if t in self.local_ranks:
+                    shapes[(s, t)] = (width, last + first)
+                if s in self.local_ranks:
+                    sends[(s, t)] = torch.cat(
+                        [torch.cat([a[s][:, b - last:], a[s][:, :first]], dim=1)
+                         for a in arrays]).contiguous()
+        got = self.exchange(sends, shapes)
+        empty = [torch.empty((width, 0), dtype=torch.int64, device=self._flat[t])
+                 for t in range(d)]
+        out = {}
+        for t in self.local_ranks:
+            prev, nxt = (t - 1) % d, (t + 1) % d
+            pre = got[(prev, t)][:, :before] if before else empty[t]
+            post = got[(nxt, t)][:, rows(nxt, t)[0]:] if after else empty[t]
+            out[t] = (pre, post)
+        return out
+
     def scatter(self, full: torch.Tensor) -> list:
         """The sharded array of a (C, N) tensor that this process holds
         whole: each of its ranks' column block, copied to the rank's

@@ -31,7 +31,9 @@ class ProverCtx:
         self.const_tree = const_tree
         self.device = device
         self.debug = debug
-        self.mesh = None  # the parallel.distributed.Mesh a sharded prove commits over
+        self.mesh = None  # the parallel.distributed.Mesh a sharded prove runs over
+        self.dshards = {}  # on a mesh: {section: its extended rows, one block per rank}
+        self.padded_bytes = {}  # on a mesh: {rank: the largest halo-padded copy it made}
         self.trees = {}
 
         ss = pil_info["starkStruct"]
@@ -76,7 +78,9 @@ class ProverCtx:
             dx_n, dx_ext, self.dZi = dev.domain_consts(
                 self.n_bits, self.n_bits_ext, pil_info["boundaries"], device)
             self.dx = {"n": dx_n, "ext": dx_ext}
-            self.dsections = {"n": {"const": const_n}, "ext": {"const": const_tree.elements}}
+            ext_const = getattr(const_tree, "elements", None)  # a ShardedTree has shards
+            self.dsections = {"n": {"const": const_n},
+                              "ext": {} if ext_const is None else {"const": ext_const}}
         self.dpending = {}
         self.dxdiv = None
         self.dq = None

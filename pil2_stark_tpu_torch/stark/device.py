@@ -81,14 +81,9 @@ def _f3_geometric(pows2: np.ndarray, bits: int, device) -> torch.Tensor:
     return acc
 
 
-def compute_evals(pil_info, sections, xis, n_bits: int, stride: int, device):
-    """evals[k] = Σ_i pol_k[i·stride] · LEv_opening(k)[i] for every evMap
-    entry (stark_gen_helpers.js:210-273); LEv = iNTT of the geometric
-    series of the opening's xi.  Entries sharing an opening and a dim are
-    reduced in one batch.  Returns a list of 3-tuples."""
-    ev_map = pil_info["evMap"]
-    openings = list(pil_info["openingPoints"])
-    cm_map = pil_info["cmPolsMap"]
+def _lev(xis, n_bits: int, device) -> list:
+    """LEv of each opening: the iNTT of the geometric series of its xi,
+    (3, N) on the device."""
     lev = []
     for xi in xis:
         pows2 = np.zeros((n_bits, 3), dtype=np.uint64)
@@ -97,7 +92,44 @@ def compute_evals(pil_info, sections, xis, n_bits: int, stride: int, device):
             pows2[k] = _as3(s)
             s = f3.square(s)
         lev.append(ntt_ops.intt(_f3_geometric(pows2, n_bits, device), n_bits))
+    return lev
 
+
+def compute_evals(pil_info, sections, xis, n_bits: int, stride: int, device):
+    """evals[k] = Σ_i pol_k[i·stride] · LEv_opening(k)[i] for every evMap
+    entry (stark_gen_helpers.js:210-273); LEv = iNTT of the geometric
+    series of the opening's xi.  Entries sharing an opening and a dim are
+    reduced in one batch.  Returns a list of 3-tuples."""
+    out = _eval_sums(pil_info, sections, _lev(xis, n_bits, device), stride, device)
+    return [tuple(int(x) for x in row) for row in gl.to_u64(out)]
+
+
+def compute_evals_sharded(pil_info, shards, xis, n_bits: int, stride: int, mesh):
+    """compute_evals over a mesh: shards {section: sharded array of its
+    extended rows}.  Rank r sums over its own decimated rows with its slice
+    of each LEv; the partial sums are added in GL on each process's lead,
+    exactly, so the evals are those of one device."""
+    d = mesh.size
+    lev = _lev(xis, n_bits, mesh.lead)
+    nd = (1 << n_bits) // d
+    parts = [None] * d
+    for r in mesh.local_ranks:
+        dv = mesh.device(r)
+        lev_r = [x[:, r * nd:(r + 1) * nd].to(dv) for x in lev]
+        parts[r] = _eval_sums(pil_info, {k: v[r] for k, v in shards.items()}, lev_r, stride,
+                              dv).reshape(-1)
+    total = None
+    for p in mesh.gather_list(parts):
+        total = p if total is None else gl.add(total, p)
+    return [tuple(int(x) for x in row) for row in gl.to_u64(total.reshape(-1, 3))]
+
+
+def _eval_sums(pil_info, sections, lev, stride: int, device) -> torch.Tensor:
+    """(len(evMap), 3): Σ_i pol_k[i·stride] · lev[opening(k)][i] over the
+    rows the sections hold."""
+    ev_map = pil_info["evMap"]
+    openings = list(pil_info["openingPoints"])
+    cm_map = pil_info["cmPolsMap"]
     dec = {}
     groups = {}
     for k, ev in enumerate(ev_map):
@@ -122,7 +154,7 @@ def compute_evals(pil_info, sections, xis, n_bits: int, stride: int, device):
             cols = torch.stack([dec[sec][off:off + 3] for _, sec, off in items], dim=1)
             prod = f3g.mul(cols, lev[o][:, None, :])  # (3, m, N)
         out[idx] = gl.gl_sum(prod, 2).T
-    return [tuple(int(x) for x in row) for row in gl.to_u64(out)]
+    return out
 
 
 def _as3(v):
@@ -162,7 +194,10 @@ class DeviceTree:
     same digest, each level stored as one (4, 1) column.  base: the planar
     (width, N) base-domain columns the elements were extended from, where
     the tree keeps them (the const tree of stark.setup.load_setup, so that
-    no prove uploads the fixed columns again); proves only read it."""
+    no prove uploads the fixed columns again); proves only read it.
+    sharded: (mesh, the tree split over it) of the last mesh a prove used
+    it on (parallel/merkle_sharded.shard_tree), so that the proves on one
+    mesh split it once, and a new mesh's split frees the old one."""
 
     width: int
     height: int
@@ -170,6 +205,7 @@ class DeviceTree:
     levels: list
     uniform: bool = False
     base: torch.Tensor | None = None
+    sharded: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @functools.cached_property
     def root(self) -> np.ndarray:

@@ -14,13 +14,18 @@ on the host through ctx.mh, hash/mh.py), the im-pol, Q and FRI
 programs on T1 (ops/torch_tac.py) and xDivXSubXi on T2 (ops/cuda_tac.py).
 
 With a mesh (parallel/distributed.py; ref prover.py:429-484, 588-590) the
-commits shard over every rank: each stage's columns and Q's split run the
-four-step network with its exchanges (parallel/ntt_sharded.py) and the
-trees are built as subtrees with the top on the lead
-(parallel/merkle_sharded.py).  The TAC programs, the evals, xDivXSubXi, FRI
-and the queries run on the mesh's lead device, with every extended section
-gathered there, as the reference runs FRI replicated.  The proof equals the
-single-device proof bit for bit.
+extended domain stays row-sharded through the whole prove, as the
+reference's GSPMD programs keep it: each stage's columns and Q's split run
+the four-step network with its exchanges (parallel/ntt_sharded.py), every
+tree keeps each rank's rows and subtree on that rank with the top on the
+lead (parallel/merkle_sharded.py; the const tree is split once per mesh),
+the Q and FRI programs (T1) run on each rank's rows with a halo of the rows
+its openings reach (``Mesh.halos``) and a row base, xDivXSubXi (T2) on each
+rank's slice of x, and the evals sum each rank's rows, added on the lead.
+Only the FRI polynomial is gathered on the lead, for the folds, which run
+there as the reference runs FRI replicated; the im-pols (base domain) run
+on the lead too, and each query reads its rows on the rank that owns them.
+The proof equals the single-device proof bit for bit.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from ..field import torch_gl as gl
 from ..ops import ntt as ntt_ops
 from ..ops import torch_tac
 from ..parallel import merkle_sharded, ntt_sharded
+from ..parallel.merkle_sharded import ShardedTree
 from ..utils.timing import PhaseTimer
 from . import device as dev
 from . import expr_eval, hints
@@ -69,12 +75,18 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
     {"stages": [[3-tuple, ...] for stages 1..nStages+3], "friSteps": [one
     per FRI step, then the query challenge]} replace the transcript's.
 
-    mesh (parallel.distributed.Mesh): shard the commits over its ranks; the
-    rest of the prove runs on its lead device, which `device` may name and
-    the const tree must live on.  Across processes every process runs this
-    prove on the same inputs and gets the same proof.  A mesh refuses debug
-    mode and BN128 trees (the reference's device backend refuses them), and
-    a transform whose factors the mesh does not divide raises.
+    mesh (parallel.distributed.Mesh): keep the extended domain sharded
+    over its ranks (the module docstring); the host side, the im-pols and
+    the FRI folds run on its lead device, which `device` may name and the
+    const tree must live on.  The const tree may be given already split
+    (merkle_sharded.shard_tree); a whole one is split once per mesh and
+    kept on it.  Across processes every process runs this prove on the same
+    inputs and gets the same proof.  A mesh refuses debug mode and BN128
+    trees (the reference's device backend refuses them), and a transform
+    whose factors the mesh does not divide raises.  The result then also
+    holds "rankBytes": for each rank of this process, the bytes of extended
+    rows it held at the end (every tree's element rows) and the most of the
+    halo-padded copies a program run made ({"sections", "padded"}).
     """
     if mesh is not None:
         if device is not None and resolve_device(device) != mesh.lead:
@@ -89,12 +101,20 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
         return _profiled(profile_dir, device, lambda: prove(
             stark_info, expressions_info, const_pols, const_tree, inputs, device=device,
             logger=logger, debug=debug, external_challenges=external_challenges, mesh=mesh))
-    if not debug and const_tree.elements.device != device:
-        raise ValueError(
-            f"the const tree lives on {const_tree.elements.device}, the prove on {device}")
+    const_at = None if debug else (const_tree.top[-1] if isinstance(const_tree, ShardedTree)
+                                   else const_tree.elements).device
+    if not debug and const_at != device:
+        raise ValueError(f"the const tree lives on {const_at}, the prove on {device}")
     timer = PhaseTimer(logger, device, None if mesh is None else mesh.local_devices())
     with timer.phase("init"):
         ctx = ProverCtx(stark_info, expressions_info, const_pols, const_tree, device, debug=debug)
+        if mesh is not None:
+            if not isinstance(const_tree, ShardedTree):
+                const_tree = merkle_sharded.shard_tree(const_tree, mesh)
+            elif const_tree.mesh is not mesh:
+                raise ValueError("the const tree is split over another mesh")
+            ctx.const_tree = const_tree
+            ctx.dshards["const"] = const_tree.shards
     ctx.timer = timer
     ctx.mesh = mesh
     ctx.external_challenges = external_challenges
@@ -179,6 +199,14 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
     for i in range(stark_info["nStages"] + 1):
         proof[f"root{i + 1}"] = ctx.mh.root(ctx.trees[i + 1])
 
+    rank_bytes = None
+    if mesh is not None:
+        trees = [ctx.trees[i + 1] for i in range(stark_info["nStages"] + 1)] + [ctx.const_tree]
+        held = [sum(t.rank_bytes()[r] for t in trees if isinstance(t, ShardedTree))
+                for r in range(mesh.size)]
+        rank_bytes = {"sections": [held[r] for r in mesh.local_ranks],
+                      "padded": [ctx.padded_bytes.get(r, 0) for r in mesh.local_ranks]}
+
     # the witness upload is timed inside the commit phase: report it apart
     for key, t_up in list(timer.timings.items()):
         if key.endswith(".upload"):
@@ -194,6 +222,7 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
         "timings": timer.summary(),
         "peakBytes": timer.peaks,
         "devicePeakBytes": timer.device_peaks,
+        **({} if rank_bytes is None else {"rankBytes": rank_bytes}),
     }
 
 
@@ -284,7 +313,15 @@ def _run_code(ctx, code_obj, dom):
     stay on the device, staged for _extend_and_merkelize to splice into the
     section (in debug mode they go to the host buffers, which the
     constraint check reads); extended-domain programs leave Q or the FRI
-    polynomial."""
+    polynomial (on a mesh, Q sharded and the FRI polynomial gathered on the
+    lead)."""
+    if dom == "ext" and ctx.mesh is not None:
+        outs = _run_code_sharded(ctx, code_obj, dom)
+        if "q" in outs[ctx.mesh.local_ranks[0]]:
+            ctx.dq = [None if o is None else o["q"] for o in outs]
+        if "f" in outs[ctx.mesh.local_ranks[0]]:
+            ctx.df = ctx.mesh.gather([None if o is None else o["f"] for o in outs])
+        return
     executor = torch_tac.make_executor(code_obj, dom, ctx.pil_info, ctx.n_bits, ctx.n_bits_ext)
     out = executor(torch_tac.pack_inputs(ctx, dom))
     if ctx.debug:
@@ -301,6 +338,47 @@ def _run_code(ctx, code_obj, dom):
         return
     for (section, offset, dim), val in out["cm"].items():
         ctx.dpending.setdefault(section, {})[offset] = (val, dim)
+
+
+def _run_code_sharded(ctx, code_obj, dom):
+    """An extended-domain program on each rank's rows: the sections it
+    reads padded with the halo its shifts reach (one exchange of the edge
+    rows for every section), x and the zerofier rows sliced to the same
+    rows, xDivXSubXi computed there (T2) when the program reads it, then T1
+    with the shard's rows as its window.  A rank's padded copies live only
+    for its own run.  Returns each local rank's outputs."""
+    mesh, ext_n = ctx.mesh, ctx.ext_N
+    prog = torch_tac.compile_program(code_obj, dom, ctx.pil_info, ctx.n_bits, ctx.n_bits_ext)
+    executor = torch_tac.make_executor(code_obj, dom, ctx.pil_info, ctx.n_bits, ctx.n_bits_ext)
+    before, after = torch_tac.halo(prog)
+    names = sorted({ref[1] for ref in prog.columns if ref[0] == "section"})
+    arrays = [ctx.dshards[name] for name in names]
+    edges = mesh.halos(arrays, before, after) if arrays and (before or after) else None
+    xis = ([f3.as3(x) for x in _opening_xis(ctx)]
+           if any(ref[0] == "xdiv" for ref in prog.columns) else None)
+    b = ext_n // mesh.size
+    outs = [None] * mesh.size
+    for r in mesh.local_ranks:
+        dv = mesh.device(r)
+        rows = (torch.arange(before + b + after, device=ctx.device) + (r * b - before)) % ext_n
+        sections, pos = {}, 0
+        for name, a in zip(names, arrays):
+            c = a[r].shape[0]
+            if edges is None:
+                sections[name] = a[r]
+            else:
+                pre, post = edges[r]
+                sections[name] = torch.cat([pre[pos:pos + c], a[r], post[pos:pos + c]], dim=1)
+            pos += c
+        if edges is not None:
+            padded = sum(t.numel() * 8 for t in sections.values())
+            ctx.padded_bytes[r] = max(ctx.padded_bytes.get(r, 0), padded)
+        x = ctx.dx["ext"][rows].to(dv)
+        shard = {"sections": sections, "x": x, "Zi": ctx.dZi[:, rows].to(dv),
+                 "xDivXSubXi": None if xis is None else dev.compute_xdiv(x, xis)}
+        outs[r] = executor(torch_tac.pack_inputs(ctx, dom, shard), window=(before, b))
+        del sections, shard
+    return outs
 
 
 def _extend_and_merkelize(stage, ctx):
@@ -327,23 +405,34 @@ def _extend_and_merkelize(stage, ctx):
     key = f"stage{stage}.upload"
     ctx.timer.timings[key] = ctx.timer.timings.get(key, 0.0) + time.perf_counter() - t_up0
     ctx.dsections["n"][f"cm{stage}"] = dev_n
-    if ctx.mesh is not None and n_pols > 0:
-        ext = ntt_sharded.sharded_lde(ctx.mesh.scatter(dev_n), ctx.n_bits, ctx.n_bits_ext,
-                                      ctx.mesh)
-        ctx.trees[stage] = _merkelize_sharded(ctx, ext, n_pols)
-    else:
+    if ctx.mesh is not None:
         if n_pols > 0:
-            ext = ntt_ops.lde_planar(dev_n, ctx.n_bits, ctx.n_bits_ext)
+            ext = ntt_sharded.sharded_lde(ctx.mesh.scatter(dev_n), ctx.n_bits, ctx.n_bits_ext,
+                                          ctx.mesh)
         else:
-            ext = torch.zeros((0, ctx.ext_N), dtype=torch.int64, device=ctx.device)
-        ctx.trees[stage] = ctx.mh.merkelize(ext, n_pols, ctx.ext_N)
+            ext = _empty_shards(ctx)
+        ctx.trees[stage] = _merkelize_sharded(ctx, ext, n_pols)
+        ctx.dshards[f"cm{stage}"] = ext
+        return [ctx.mh.root(ctx.trees[stage])]
+    if n_pols > 0:
+        ext = ntt_ops.lde_planar(dev_n, ctx.n_bits, ctx.n_bits_ext)
+    else:
+        ext = torch.zeros((0, ctx.ext_N), dtype=torch.int64, device=ctx.device)
+    ctx.trees[stage] = ctx.mh.merkelize(ext, n_pols, ctx.ext_N)
     ctx.dsections["ext"][f"cm{stage}"] = ctx.trees[stage].elements
     return [ctx.mh.root(ctx.trees[stage])]
 
 
+def _empty_shards(ctx):
+    """The sharded array of a zero-width section."""
+    b = ctx.ext_N // ctx.mesh.size
+    return [torch.zeros((0, b), dtype=torch.int64, device=ctx.mesh.device(r))
+            if r in ctx.mesh.local_ranks else None for r in range(ctx.mesh.size)]
+
+
 def _merkelize_sharded(ctx, shards, n_pols):
-    """The tree of a sharded extended section, its elements gathered on
-    the lead device (ref prover.py:470-484)."""
+    """The tree of a sharded extended section, its rows kept on their
+    ranks (ref prover.py:470-484)."""
     return merkle_sharded.merkelize(ctx.mesh, shards, n_pols, ctx.ext_N,
                                     ctx.mh.split_linear_hash)
 
@@ -375,13 +464,14 @@ def _compute_q(ctx):
 
 
 def _compute_q_sharded(ctx, q_stage, n_pols_q, shift_in, n_inv):
-    """_compute_q over the mesh: the iNTT of Q's (qDim, extN) columns, the
-    move of each chunk p (its columns [p·N, (p+1)·N)) to rows p·qDim of the
-    first N columns, scaled by n_inv·shiftIn^p, and the NTT of the
-    (qDeg·qDim, extN) result."""
+    """_compute_q over the mesh: the iNTT of Q's sharded (qDim, extN)
+    columns as the Q program left them on the ranks, the move of each
+    chunk p (its columns [p·N, (p+1)·N)) to rows p·qDim of the first N
+    columns, scaled by n_inv·shiftIn^p, and the NTT of the (qDeg·qDim,
+    extN) result."""
     q_dim, q_deg = ctx.pil_info["qDim"], ctx.pil_info["qDeg"]
     mesh, n = ctx.mesh, ctx.N
-    qq1 = ntt_sharded.sharded_ntt(mesh.scatter(ctx.dq), ctx.n_bits_ext, mesh, inverse=True)
+    qq1 = ntt_sharded.sharded_ntt(ctx.dq, ctx.n_bits_ext, mesh, inverse=True)
     ctx.dq = None
     factors = gl64.powers(shift_in, q_deg, start=n_inv)
     moves = [(p * n, p * q_dim, 0, n, int(factors[p])) for p in range(q_deg)]
@@ -389,7 +479,7 @@ def _compute_q_sharded(ctx, q_stage, n_pols_q, shift_in, n_inv):
     del qq1
     ext = ntt_sharded.sharded_ntt(padded, ctx.n_bits_ext, mesh)
     ctx.trees[q_stage] = _merkelize_sharded(ctx, ext, n_pols_q)
-    ctx.dsections["ext"][f"cm{q_stage}"] = ctx.trees[q_stage].elements
+    ctx.dshards[f"cm{q_stage}"] = ext
     return [ctx.mh.root(ctx.trees[q_stage])]
 
 
@@ -407,8 +497,13 @@ def _opening_xis(ctx):
 def _compute_evals(ctx):
     """computeEvalsStark (stark_gen_helpers.js:210-273) on the device."""
     xis = [f3.mul(x, f3.inv1(gl64.SHIFT_INT)) for x in _opening_xis(ctx)]
-    ctx.evals = dev.compute_evals(
-        ctx.pil_info, ctx.dsections["ext"], xis, ctx.n_bits, 1 << ctx.extend_bits, ctx.device)
+    if ctx.mesh is not None:
+        ctx.evals = dev.compute_evals_sharded(
+            ctx.pil_info, ctx.dshards, xis, ctx.n_bits, 1 << ctx.extend_bits, ctx.mesh)
+    else:
+        ctx.evals = dev.compute_evals(
+            ctx.pil_info, ctx.dsections["ext"], xis, ctx.n_bits, 1 << ctx.extend_bits,
+            ctx.device)
     if ctx.pil_info["starkStruct"].get("hashCommits"):
         return [_hash_commits(ctx, ctx.evals)]
     return list(ctx.evals)
@@ -418,8 +513,10 @@ def _compute_fri_pol(ctx):
     """computeFRIStark (stark_gen_helpers.js:275-335); returns the FRI
     polynomial (3, extN).  xDivXSubXi is dropped after the FRI program, its
     only reader, and the context keeps no reference to the polynomial, so
-    the folds free it after the first one."""
-    ctx.dxdiv = dev.compute_xdiv(ctx.dx["ext"], [f3.as3(x) for x in _opening_xis(ctx)])
+    the folds free it after the first one.  On a mesh each rank computes
+    its own rows of xDivXSubXi (_run_code_sharded)."""
+    if ctx.mesh is None:
+        ctx.dxdiv = dev.compute_xdiv(ctx.dx["ext"], [f3.as3(x) for x in _opening_xis(ctx)])
     _run_code(ctx, *torch_tac.device_program(ctx.pil_info, ctx.expressions_info, "fri"))
     pol, ctx.df, ctx.dxdiv = ctx.df, None, None
     return pol

@@ -231,6 +231,40 @@ def test_tac_kernel_equals_plain(card, name, which, bits):
     _tac_equal(got, torch_tac.run_plain(prog, inputs))
 
 
+@pytest.mark.parametrize("bits", [6, 12, 21])
+def test_tac_window_launch_equals_plain(card, bits):
+    """T1 with a row base, as a mesh's shard runs it: fibv_fibonacci's Q
+    program (row shifts of -2 and +2 at blowup 2) on each of 4 shards of
+    2^bits rows, given the shard's rows with its halo and launched with
+    the signed shifts, equals run_plain's windowed run and the whole run's
+    rows; the shifts read outside the block raise."""
+    setup = tsetup.read_setup("fibv_fibonacci")
+    info = setup["starkInfo"]
+    code, dom = torch_tac.device_program(info, setup["expressionsInfo"], "q")
+    prog = torch_tac.compile_program(code, dom, info, bits - 1, bits)
+    before, after = torch_tac.halo(prog)
+    assert (before, after) == (2, 2)
+    n = prog.n
+    whole = _tac_inputs(info, dom, n, bits, card)
+    whole["subproofValues"] = _rand((max(info.get("nSubproofValues", 0), 1), 3), 5, card)
+    want = torch_tac.run_plain(prog, whole)
+    b = n // 4
+    for r in range(4):
+        rows = (torch.arange(before + b + after, device=card) + r * b - before) % n
+        win = dict(whole, x=whole["x"][rows].contiguous(), Zi=whole["Zi"][:, rows].contiguous(),
+                   xDivXSubXi=whole["xDivXSubXi"][:, :, rows].contiguous(),
+                   sections={k: v[:, rows].contiguous() for k, v in whole["sections"].items()})
+        launches = cuda_tac.tac_program.launches
+        got = torch_tac.run_kernel(prog, win, (before, b))
+        assert cuda_tac.tac_program.launches == launches + 1
+        _tac_equal(got, torch_tac.run_plain(prog, win, (before, b)))
+        assert torch.equal(got["q"], want["q"][:, r * b:(r + 1) * b]), r
+    gen, _, ptrs, table = torch_tac.kernel_args(prog, win, (before, b))
+    with pytest.raises(ValueError, match="outside"):
+        cuda_tac.tac_program(gen, ptrs, table, before + b + after, 1, b,
+                             [torch_tac.signed_shift(x, n) for x in gen.shifts])
+
+
 def test_tac_segmented_program_on_card(card):
     code_obj, info, prog = tac_cases.segmented_case(12, 14)
     inputs = tac_cases.inputs_for(info, 1 << 14, 9, card)
@@ -625,7 +659,10 @@ def test_sharded_ntt_lde_tree_on_card(card, kind):
     assert torch.equal(mesh.gather(ext), want)
     tree = merkle_sharded.merkelize(mesh, ext, 4, 1 << 19)
     single = stark_device.merkelize(want, 4, 1 << 19)
-    assert all(torch.equal(a, b) for a, b in zip(tree.levels, single.levels))
+    levels = tree.gather_levels()  # the tree keeps each rank's rows on its card
+    assert len(levels) == len(single.levels)
+    assert all(torch.equal(a, b) for a, b in zip(levels, single.levels))
+    assert [s.device for s in tree.shards] == [mesh.device(r) for r in range(mesh.size)]
     assert mesh.exchanged_bytes > 0
     torch.cuda.synchronize()
 

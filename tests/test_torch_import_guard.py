@@ -8,7 +8,10 @@ proves and verifies fibonacci 2^6 on the CPU, and the multi-device prover
 (parallel/) runs a sharded transform and tree on 4 CPU ranks, and the
 recursion tier's modules are all there and emit their circuits and PIL,
 and so are the BN128 half's (a BN128 verifier circuit emitted; Mul3 set up
-as finalfflonk, proved and verified with fflonk).  Its sources
+as finalfflonk, proved and verified with fflonk) and the export leg's (its
+zkey written and read back, its contract's calldata accepted on the EVM,
+the search optimizer, sqrt, the host C++ runtime), and fibonacci 2^6 proves
+row-sharded on 2 CPU ranks to the one-device proof.  Its sources
 name neither package in an import statement, and its entry points refuse
 to fall back to the CPU when no card is there."""
 import pathlib
@@ -136,6 +139,36 @@ bn = dict(copy.deepcopy(fibonacci.STARK_STRUCT), verificationHashType="BN128")
 bs = setup.stark_setup(fibonacci.build(pil["references"], 64)[0].buffer, pil, bn, device="cpu")
 assert "StarkVerifierBN0" in pil2circom.pil2circom(bs["constRoot"], bs["starkInfo"],
                                                    bs["verifierInfo"])
+# the export leg: the zkey file, the contract, its calldata on the EVM, the
+# search optimizer, GL sqrt; the host C++ runtime
+tier = {f"pil2_stark_tpu_torch.{m}" for m in (
+    "fflonk.zkey_binfile", "fflonk.solidity", "fflonk.evm", "fflonk.search_optimizer",
+    "field.sqrt", "runtime", "runtime.native", "utils.host_build")}
+assert tier <= set(names), tier - set(names)
+import json
+from pil2_stark_tpu_torch.fflonk import evm, search_optimizer, solidity, zkey_binfile
+from pil2_stark_tpu_torch.field import sqrt
+from pil2_stark_tpu_torch.runtime import native
+vk = shkey.verification_key(zkey, info["pilInfo"])
+with tempfile.TemporaryDirectory() as d:
+    zkey_binfile.write_zkey(f"{d}/m.zkey", zkey, ptau)
+    zk2, _ = zkey_binfile.read_zkey(f"{d}/m.zkey")
+assert shkey.verification_key(zk2, info["pilInfo"]) == vk
+calldata = solidity.export_calldata(vk, fres["proof"], fres["publics"])
+words = [int(w, 16) for w in json.loads(f"[{calldata}]")[0]]
+assert evm.run_verifier(vk, info["pilInfo"], info["verifierInfo"], words,
+                        [int(p) % plonksetup.FR for p in fres["publics"]])[0] is True
+assert "pragma solidity" in solidity.export_pilfflonk_verifier(vk, info["pilInfo"],
+                                                               info["verifierInfo"])
+assert search_optimizer.exhaustive_search_optimizer(6, 4, 10, ratio=1e9)["degP"] == 3
+assert sqrt.sqrt(4) in (2, P - 2)
+assert native.permute_int(list(range(12))) == poseidon_gl.permute_int(list(range(12)))
+# the row-sharded prove: fibonacci 2^6 on 2 CPU ranks gives the one-device proof
+mesh = distributed.proof_mesh(devices=["cpu"] * 2)
+const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
+sres = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["constTree"],
+                    (cm_cols.buffer, publics), mesh=mesh)
+assert json.dumps(sres["proof"], default=str) == json.dumps(res["proof"], default=str)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("IMPORTED", len(names))
 '''

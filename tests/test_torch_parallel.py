@@ -146,19 +146,24 @@ def test_sharded_merkle_root_matches_single(mesh, width):
 
 def test_sharded_merkle_levels_match_single(mesh):
     """Every level equals the host tree's and the single-device tree's, the
-    split linear hash's too."""
+    split linear hash's too; the tree keeps each rank's rows on that rank
+    (gathered here only to compare)."""
     height, width = 256, 5
     buff = _rand((height, width), 6)
     cols = torch_gl.from_u64(buff.T, CPU)
     want = jmerkle.merkelize(buff, width, height, backend="np")
     tree = merkle_sharded.merkelize(mesh, mesh.scatter(cols), width, height)
-    assert len(tree.levels) == len(want.levels)
-    for k, (lvl, ref) in enumerate(zip(tree.levels, want.levels)):
+    levels = tree.gather_levels()
+    assert len(levels) == len(want.levels)
+    for k, (lvl, ref) in enumerate(zip(levels, want.levels)):
         np.testing.assert_array_equal(torch_gl.to_u64(lvl.T), ref, err_msg=f"level {k}")
-    assert torch.equal(tree.elements, cols)
+    assert torch.equal(mesh.gather(tree.shards), cols)
+    assert all(s.shape == (width, height // mesh.size) for s in tree.shards)
     split = merkle_sharded.merkelize(mesh, mesh.scatter(cols), width, height, split=True)
     single = tdevice.merkelize(cols, width, height, split=True)
-    assert all(torch.equal(a, b) for a, b in zip(split.levels, single.levels))
+    split_levels = split.gather_levels()
+    assert len(split_levels) == len(single.levels)
+    assert all(torch.equal(a, b) for a, b in zip(split_levels, single.levels))
 
 
 def test_zero_width_tree_is_uniform(mesh):
