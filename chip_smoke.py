@@ -1462,10 +1462,11 @@ def phase_prove(device, setup_name, counters, warm=True):
     res, out = prove_cold_warm(setup, const_cols.buffer, cm_cols.buffer, publics, prove_device,
                                counters, warm=warm)
     if compiled:  # the same verify on the python-int hashing the runtime replaced
+        from pil2_stark_tpu_torch.runtime import native
         from pil2_stark_tpu_torch.stark import verifier
 
         t0 = time.perf_counter()
-        with plain_host_hashing():
+        with native.plain_hashing():
             out["verify_plain_ok"] = verifier.verify(
                 res["proof"], res["publics"], setup["constRoot"], setup["starkInfo"],
                 setup["verifierInfo"])
@@ -1494,36 +1495,6 @@ def phase_prove(device, setup_name, counters, warm=True):
                              f"{compiled['equals_committed']}")
     check_proves(setup_name, out)
     return out["launches"], library
-
-
-@contextlib.contextmanager
-def plain_host_hashing():
-    """The host Merkle paths and transcripts on the python-int permutation
-    (hash/poseidon_gl.permute_int, what they ran on before the host C++
-    runtime) in place of the runtime, to time a verify on both in one run."""
-    import types
-
-    import numpy as np
-
-    from pil2_stark_tpu_torch.hash import merkle, poseidon_gl, transcript
-
-    def linear_hash(rows):
-        return np.array([merkle._sponge_int([int(v) for v in row], poseidon_gl.permute_int)
-                         for row in rows], dtype=np.uint64)
-
-    def merkle_level(level):
-        pairs = np.asarray(level).reshape(-1, 8)
-        return np.array([poseidon_gl.permute_int([int(v) for v in pair] + [0] * 4)[:4]
-                         for pair in pairs], dtype=np.uint64)
-
-    plain = types.SimpleNamespace(permute_int=poseidon_gl.permute_int,
-                                  linear_hash=linear_hash, merkle_level=merkle_level)
-    saved = merkle.native, transcript.native
-    merkle.native = transcript.native = plain
-    try:
-        yield
-    finally:
-        merkle.native, transcript.native = saved
 
 
 def prove_cold_warm(setup, fixed, witness, publics, device, counters, warm=True):
@@ -1710,13 +1681,16 @@ def phase_mesh(device, counters, vm):
     want = proof_digest(vm["proof"])
     paths = {}
     virtual = distributed.proof_mesh(devices=[device] * MESH_RANKS)
-    out = mesh_prove(virtual, vm["setup"], vm["columns"], counters)
+    setup = split_const_tree(vm["setup"], virtual)
+    out = mesh_prove(virtual, setup, vm["columns"], counters)
     emit({"phase": "mesh", "path": "virtual", "setup": VM_SETUP, **out})
     _print_rank_bytes("virtual", out)
     _check_mesh_prove("virtual", out, want)
     paths["virtual"] = f"ran: {MESH_RANKS} ranks on {device}"
     launches = out["launches"]
-    _profile_mesh(virtual, vm)
+    _profile_mesh(virtual, setup, vm["columns"])
+    del setup
+    torch.cuda.empty_cache()
     n_cards = torch.cuda.device_count()
     try:
         for bits in (VM_N_BITS, VM_BITS):
@@ -1726,17 +1700,43 @@ def phase_mesh(device, counters, vm):
         why_not = str(e)
     if why_not is None:
         cards = distributed.proof_mesh()
-        out = mesh_prove(cards, vm["setup"], vm["columns"], counters)
+        setup = split_const_tree(vm["setup"], cards)
+        out = mesh_prove(cards, setup, vm["columns"], counters)
         emit({"phase": "mesh", "path": "cards", "setup": VM_SETUP, **out})
         _print_rank_bytes("cards", out)
         _check_mesh_prove("cards", out, want)
         paths["cards"] = f"ran: {n_cards} cards in one process"
+        del setup
         torch.cuda.empty_cache()
         paths["processes_nccl"] = _nccl_processes(n_cards, want)
     else:
         paths["cards"] = paths["processes_nccl"] = f"not run: {why_not}"
     emit({"phase": "mesh", "paths": paths, "seconds": time.perf_counter() - t0})
     return rows, launches
+
+
+def split_const_tree(setup, mesh):
+    """A copy of `setup` whose const tree is split over `mesh`
+    (merkle_sharded.shard_tree), the one split that all the proves on that
+    mesh take.  The whole tree is taken out of `setup`, so that no card
+    holds it beside the split (on a virtual mesh the card would hold the
+    const tree twice); once it is gone, a later split builds it again on
+    the lead from the setup's fixed columns, outside any prove."""
+    import torch
+
+    from pil2_stark_tpu_torch.hash.mh import build_mh
+    from pil2_stark_tpu_torch.parallel import merkle_sharded
+    from pil2_stark_tpu_torch.stark import setup as stark_setup
+
+    whole = setup.pop("constTree", None)
+    if whole is None:
+        ss = setup["starkInfo"]["starkStruct"]
+        whole = stark_setup.const_tree(setup["fixedPols"], ss["nBits"], ss["nBitsExt"],
+                                       build_mh(ss), mesh.lead)
+    split = merkle_sharded.shard_tree(whole, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    return dict(setup, constTree=split)
 
 
 def _print_rank_bytes(label, out):
@@ -1751,7 +1751,7 @@ def _print_rank_bytes(label, out):
         print(f"mesh {label} {card}: peak {peak} B", flush=True)
 
 
-def _profile_mesh(mesh, vm):
+def _profile_mesh(mesh, setup, columns):
     """One more warm prove(mesh=) under the profiler: the card's idle share
     over the prove and its phases, and the device's top operations."""
     import os
@@ -1761,8 +1761,7 @@ def _profile_mesh(mesh, vm):
     from pil2_stark_tpu_torch.stark import prover
     from pil2_stark_tpu_torch.utils import timing
 
-    const_cols, cm_cols, publics = vm["columns"]
-    setup = vm["setup"]
+    const_cols, cm_cols, publics = columns
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), PROFILE_DIR, "mesh")
     res = prover.prove(setup["starkInfo"], setup["expressionsInfo"], const_cols.buffer,
                        setup["constTree"], (cm_cols.buffer, publics), mesh=mesh,
@@ -1831,7 +1830,7 @@ def mesh_worker(rank, world, port):
 
     from pil2_stark_tpu_torch.compiler import pil1_parser
     from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
-    from pil2_stark_tpu_torch.parallel import distributed, merkle_sharded
+    from pil2_stark_tpu_torch.parallel import distributed
     from pil2_stark_tpu_torch.stark import setup as stark_setup
 
     rank, world = int(rank), int(world)
@@ -1845,8 +1844,7 @@ def mesh_worker(rank, world, port):
             columns[0].buffer, pil, gadgets.stark_struct(VM_N_BITS, VM_BITS, n_queries=32))
         mesh = distributed.proof_mesh()
         # this process keeps its rank's rows of the const tree, not the whole
-        setup["constTree"] = merkle_sharded.shard_tree(setup["constTree"], mesh)
-        torch.cuda.empty_cache()
+        setup = split_const_tree(setup, mesh)
         out = mesh_prove(mesh, setup, columns, prove_counters(), verify=rank == 0)
         emit({"rank": rank, "card": str(torch.cuda.current_device()), **out})
     finally:

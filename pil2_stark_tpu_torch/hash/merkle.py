@@ -18,8 +18,9 @@ builds its trees on the device (stark/device.py); this module serves the
 verifier (``verify_group_proof`` hashes one path), small host trees and the
 tree files (stark/device.py::to_host_tree turns a device tree into a
 MerkleTree).  As in the JAX package, the leaves (normal layout), the levels
-and the path hashes run on the host C++ runtime (runtime/native.py);
-``plain=True`` takes the numpy and python-int versions it is held against.
+and the path hashes run on the host C++ runtime (runtime/native.py;
+``native.plain_hashing()`` swaps in the python-int versions it is held
+against).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import dataclasses
 import numpy as np
 
 from ..runtime import native
-from . import linearhash, poseidon_gl
+from . import linearhash
 
 
 @dataclasses.dataclass
@@ -77,19 +78,13 @@ def _pad_even(digests: np.ndarray) -> np.ndarray:
 
 
 def merkelize(buff: np.ndarray, width: int, height: int,
-              split_linear_hash: bool = False, plain: bool = False) -> MerkleTree:
+              split_linear_hash: bool = False) -> MerkleTree:
     elements = np.asarray(buff, dtype=np.uint64).reshape(height, width)
-    if split_linear_hash:
-        leaves = linearhash.linear_hash_split(elements)
-    else:
-        leaves = (linearhash.linear_hash if plain else native.linear_hash)(elements)
-    levels = [_pad_even(leaves)]
+    fn = linearhash.linear_hash_split if split_linear_hash else native.linear_hash
+    levels = [_pad_even(fn(elements))]
     n = height
     while n > 1:
-        if plain:
-            nxt = poseidon_gl.hash_n(levels[-1].reshape(-1, 8))
-        else:
-            nxt = native.merkle_level(levels[-1])
+        nxt = native.merkle_level(levels[-1])
         n = nxt.shape[0]
         levels.append(_pad_even(nxt) if n > 1 else nxt)
     return MerkleTree(width=width, height=height, elements=elements, levels=levels)
@@ -119,32 +114,25 @@ def _sponge_int(values: list, permute) -> list:
     return st
 
 
-def _linear_hash_int(values: list, split: bool, plain: bool = False) -> list:
+def _linear_hash_int(values: list, split: bool) -> list:
     if split and len(values) > 4:
-        permute = poseidon_gl.permute_int if plain else native.permute_int
         w = len(values)
         batch = int(max(8, (w + 3) / 4))
         cat = []
         for s in range(0, w, batch):
-            cat += _sponge_int(values[s:s + batch], permute)
-        return _sponge_int(cat, permute)
-    if plain:
-        return _sponge_int(values, poseidon_gl.permute_int)
+            cat += _sponge_int(values[s:s + batch], native.permute_int)
+        return _sponge_int(cat, native.permute_int)
     return [int(v) for v in native.linear_hash(np.array([values], dtype=np.uint64))[0]]
 
 
-def calculate_root_from_proof(proof, idx: int, values, split_linear_hash: bool = False,
-                              plain: bool = False):
+def calculate_root_from_proof(proof, idx: int, values, split_linear_hash: bool = False):
     """Recompute the root from a (values, siblings) proof
     (merklehash_p.js:169-206)."""
-    h = _linear_hash_int([int(v) for v in values], split_linear_hash, plain)
+    h = _linear_hash_int([int(v) for v in values], split_linear_hash)
     for sib in proof:
         sib = [int(v) for v in sib]
         inp = sib + h if idx & 1 else h + sib
-        if plain:
-            h = poseidon_gl.permute_int(inp + [0, 0, 0, 0])[:4]
-        else:
-            h = [int(v) for v in native.merkle_level(np.array(inp, dtype=np.uint64).reshape(2, 4))[0]]
+        h = [int(v) for v in native.merkle_level(np.array(inp, dtype=np.uint64).reshape(2, 4))[0]]
         idx >>= 1
     return np.array(h, dtype=np.uint64)
 

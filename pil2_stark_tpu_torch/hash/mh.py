@@ -20,7 +20,6 @@ import dataclasses
 import torch
 
 from ..field import torch_gl as gl
-from ..parallel import merkle_sharded
 from ..stark import device as dev
 from . import merkle as merkle_gl
 from . import merkle_bn128
@@ -41,7 +40,7 @@ class MerkleHashGL:
         return tree.root
 
     def get_group_proofs_multi(self, trees, idxs_list):
-        return merkle_sharded.gather_group_proofs_multi(trees, idxs_list)
+        return dev.gather_group_proofs_multi(trees, idxs_list)
 
     def verify_group_proof(self, root, proof, idx, values):
         return merkle_gl.verify_group_proof(root, proof, idx, values, self.split_linear_hash)

@@ -6,20 +6,18 @@ absorb up to 8 pending elements then permute with nOuts=12; `get_field()`
 squeezes 3 base elements (a cubic-extension challenge); `get_permutations`
 extracts FRI query indices 63 bits per squeezed element (transcript.js:59-84).
 As in the JAX package, each permutation runs on the host C++ runtime
-(runtime/native.py); ``Transcript(plain=True)`` takes the python-int
-permutation it is held against.
+(runtime/native.py; ``native.plain_hashing()`` swaps in the python-int
+permutation it is held against).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..runtime import native
-from . import poseidon_gl
 
 
 class Transcript:
-    def __init__(self, plain: bool = False):
-        self._permute = poseidon_gl.permute_int if plain else native.permute_int
+    def __init__(self):
         self.state = [0, 0, 0, 0]
         self.pending: list[int] = []
         self.out: list[int] = []
@@ -40,7 +38,7 @@ class Transcript:
     def _update_state(self) -> None:
         while len(self.pending) < 8:
             self.pending.append(0)
-        self.out = self._permute(self.pending + self.state)
+        self.out = native.permute_int(self.pending + self.state)
         self.pending = []
         self.state = self.out[:4]
 

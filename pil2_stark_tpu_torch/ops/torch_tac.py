@@ -144,13 +144,14 @@ def make_executor(code_obj, dom: str, pil_info: dict, n_bits: int, ext_bits: int
     `rows` rows.
     """
     prog = compile_program(code_obj, dom, pil_info, n_bits, ext_bits)
+    return lambda inputs, window=None: run(prog, inputs, window)
 
-    def fn(inputs, window=None):
-        if inputs["x"].device.type == "cpu":
-            return run_plain(prog, inputs, window)
-        return run_kernel(prog, inputs, window)
 
-    return fn
+def run(prog: Program, inputs, window=None) -> dict:
+    """run_kernel for CUDA inputs, run_plain for CPU ones (make_executor)."""
+    if inputs["x"].device.type == "cpu":
+        return run_plain(prog, inputs, window)
+    return run_kernel(prog, inputs, window)
 
 
 def compile_program(code_obj, dom: str, pil_info: dict, n_bits: int,

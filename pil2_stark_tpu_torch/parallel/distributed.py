@@ -193,13 +193,12 @@ class Mesh:
                         [torch.cat([a[s][:, b - last:], a[s][:, :first]], dim=1)
                          for a in arrays]).contiguous()
         got = self.exchange(sends, shapes)
-        empty = [torch.empty((width, 0), dtype=torch.int64, device=self._flat[t])
-                 for t in range(d)]
         out = {}
         for t in self.local_ranks:
             prev, nxt = (t - 1) % d, (t + 1) % d
-            pre = got[(prev, t)][:, :before] if before else empty[t]
-            post = got[(nxt, t)][:, rows(nxt, t)[0]:] if after else empty[t]
+            empty = torch.empty((width, 0), dtype=torch.int64, device=self._flat[t])
+            pre = got[(prev, t)][:, :before] if before else empty
+            post = got[(nxt, t)][:, rows(nxt, t)[0]:] if after else empty
             out[t] = (pre, post)
         return out
 

@@ -117,29 +117,29 @@ def _top(mesh, low: list) -> list:
 
 def shard_tree(tree: dev.DeviceTree, mesh) -> ShardedTree:
     """A whole tree on this process's lead (a const tree from
-    stark.setup.load_setup) split over the mesh: each rank gets its element
-    rows and its subtree's levels, copied on the card.  Cached on the tree
-    for the last mesh it was split over, so that the proves of one setup on
-    one mesh split it once and another mesh's split replaces it; its `base`
-    columns stay where they are."""
-    if tree.sharded is not None and tree.sharded[0] is mesh:
-        return tree.sharded[1]
-    tree.sharded = None  # the old split goes before the new one is made
+    stark.setup.load_setup) split over the mesh: each rank gets a copy of
+    its element rows and its subtree's levels on its device; the top levels
+    and the `base` columns stay where they are.  stark.prover.prove(mesh=)
+    takes the split, made once for every prove on that mesh.  The split
+    holds nothing of the whole tree's rows, so a caller that drops the
+    whole tree keeps each rank's rows once (on a virtual mesh too)."""
     d = mesh.size
     _check_height(tree.height, d)
     b = tree.height // d
     lb = b.bit_length() - 1
     shards = [None] * d
     low = [None] * d
+
+    def copy(t, dv):  # a copy even on the tree's own device, not a view into it
+        return t.to(dv, copy=True, memory_format=torch.contiguous_format)
+
     for r in mesh.local_ranks:
         dv = mesh.device(r)
-        shards[r] = tree.elements[:, r * b:(r + 1) * b].to(dv).contiguous()
-        low[r] = [tree.levels[k][:, r * (b >> k):(r + 1) * (b >> k)].to(dv).contiguous()
+        shards[r] = copy(tree.elements[:, r * b:(r + 1) * b], dv)
+        low[r] = [copy(tree.levels[k][:, r * (b >> k):(r + 1) * (b >> k)], dv)
                   for k in range(lb + 1)]
-    out = ShardedTree(mesh=mesh, width=tree.width, height=tree.height, shards=shards, low=low,
-                      top=list(tree.levels[lb:]), base=tree.base)
-    tree.sharded = (mesh, out)
-    return out
+    return ShardedTree(mesh=mesh, width=tree.width, height=tree.height, shards=shards, low=low,
+                       top=list(tree.levels[lb:]), base=tree.base)
 
 
 def gather_group_proofs_multi(trees, idxs_list):

@@ -7,10 +7,14 @@ into ``_build/host/``.  Unlike the JAX package, which falls back to numpy
 when the build fails, a failed build raises here: the plain versions
 (field/gl64.py, hash/poseidon_gl.py, hash/linearhash.py) are what the
 tests hold these functions against, not a silent second path.
+``plain_hashing()`` runs the host trees, path checks and transcripts on
+them for as long as it lasts.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import types
 
 import numpy as np
 
@@ -92,3 +96,30 @@ def merkle_level(level) -> np.ndarray:
     out = np.empty((m, 4), dtype=np.uint64)
     lib().merkle_level(_ptr(level), m, _ptr(out))
     return out
+
+
+@contextlib.contextmanager
+def plain_hashing():
+    """hash/merkle.py and hash/transcript.py on the python-int permutation
+    (hash/poseidon_gl.permute_int, what they ran on before this runtime)
+    in place of the runtime while the context lasts: the version the
+    runtime is held against, and timed beside."""
+    from ..hash import merkle, poseidon_gl, transcript
+
+    def linear_hash(rows):
+        return np.array([merkle._sponge_int([int(v) for v in row], poseidon_gl.permute_int)
+                         for row in rows], dtype=np.uint64).reshape(-1, 4)
+
+    def merkle_level(level):
+        pairs = np.asarray(level).reshape(-1, 8)
+        return np.array([poseidon_gl.permute_int([int(v) for v in pair] + [0] * 4)[:4]
+                         for pair in pairs], dtype=np.uint64).reshape(-1, 4)
+
+    plain = types.SimpleNamespace(permute_int=poseidon_gl.permute_int,
+                                  linear_hash=linear_hash, merkle_level=merkle_level)
+    saved = merkle.native, transcript.native
+    merkle.native = transcript.native = plain
+    try:
+        yield
+    finally:
+        merkle.native, transcript.native = saved

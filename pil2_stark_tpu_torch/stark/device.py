@@ -194,10 +194,7 @@ class DeviceTree:
     same digest, each level stored as one (4, 1) column.  base: the planar
     (width, N) base-domain columns the elements were extended from, where
     the tree keeps them (the const tree of stark.setup.load_setup, so that
-    no prove uploads the fixed columns again); proves only read it.
-    sharded: (mesh, the tree split over it) of the last mesh a prove used
-    it on (parallel/merkle_sharded.shard_tree), so that the proves on one
-    mesh split it once, and a new mesh's split frees the old one."""
+    no prove uploads the fixed columns again); proves only read it."""
 
     width: int
     height: int
@@ -205,7 +202,6 @@ class DeviceTree:
     levels: list
     uniform: bool = False
     base: torch.Tensor | None = None
-    sharded: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @functools.cached_property
     def root(self) -> np.ndarray:

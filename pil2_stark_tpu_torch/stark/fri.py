@@ -69,9 +69,11 @@ class FRI:
         proof = [tuple(int(x) for x in pol2_np[i]) for i in range(pol2_np.shape[0])]
         return {"pol": pol2_np, "tree": None, "proof": proof}
 
-    def proof_queries(self, proof, trees, fri_queries):
+    def proof_queries(self, proof, trees, fri_queries, gather=None):
         """fri.js:83-105 — mutates fri_queries (index folding) like the JS.
-        Every (tree, folded-index) job is extracted in ONE device gather."""
+        Every (tree, folded-index) job is extracted in ONE device gather:
+        gather(trees, idxs_list), the hash backend's unless given (a mesh
+        prove gives parallel/merkle_sharded's)."""
         jobs = []
         for step in range(len(self.steps)):
             if step == 0:
@@ -82,7 +84,8 @@ class FRI:
                     fri_queries[i] = fri_queries[i] % (1 << self.steps[step]["nBits"])
                 jobs.append((trees[step], list(fri_queries)))
 
-        res = self.mh.get_group_proofs_multi([t for t, _ in jobs], [i for _, i in jobs])
+        gather = gather or self.mh.get_group_proofs_multi
+        res = gather([t for t, _ in jobs], [i for _, i in jobs])
         per_job = [[[v, p] for v, p in r] for r in res]
 
         n_t = len(trees[0])

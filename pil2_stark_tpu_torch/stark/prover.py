@@ -18,13 +18,15 @@ extended domain stays row-sharded through the whole prove, as the
 reference's GSPMD programs keep it: each stage's columns and Q's split run
 the four-step network with its exchanges (parallel/ntt_sharded.py), every
 tree keeps each rank's rows and subtree on that rank with the top on the
-lead (parallel/merkle_sharded.py; the const tree is split once per mesh),
+lead (parallel/merkle_sharded.py; the caller splits the const tree once
+per mesh),
 the Q and FRI programs (T1) run on each rank's rows with a halo of the rows
 its openings reach (``Mesh.halos``) and a row base, xDivXSubXi (T2) on each
 rank's slice of x, and the evals sum each rank's rows, added on the lead.
 Only the FRI polynomial is gathered on the lead, for the folds, which run
 there as the reference runs FRI replicated; the im-pols (base domain) run
-on the lead too, and each query reads its rows on the rank that owns them.
+on the lead too, and each query reads its rows on the rank that owns them
+(merkle_sharded.gather_group_proofs_multi).
 The proof equals the single-device proof bit for bit.
 """
 from __future__ import annotations
@@ -77,10 +79,9 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
 
     mesh (parallel.distributed.Mesh): keep the extended domain sharded
     over its ranks (the module docstring); the host side, the im-pols and
-    the FRI folds run on its lead device, which `device` may name and the
-    const tree must live on.  The const tree may be given already split
-    (merkle_sharded.shard_tree); a whole one is split once per mesh and
-    kept on it.  Across processes every process runs this prove on the same
+    the FRI folds run on its lead device, which `device` may name.  The
+    const tree is then split over that mesh (merkle_sharded.shard_tree,
+    once for all the proves on the mesh), its top on the lead.  Across processes every process runs this prove on the same
     inputs and gets the same proof.  A mesh refuses debug mode and BN128
     trees (the reference's device backend refuses them), and a transform
     whose factors the mesh does not divide raises.  The result then also
@@ -95,6 +96,9 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
             raise ValueError("a debug prove runs on one device: pass no mesh")
         if stark_info["starkStruct"].get("verificationHashType", "GL") != "GL":
             raise ValueError("a mesh builds GL trees only; BN128 trees are built on the host")
+        if not (isinstance(const_tree, ShardedTree) and const_tree.mesh is mesh):
+            raise ValueError("a mesh prove takes the const tree split over its mesh "
+                             "(parallel.merkle_sharded.shard_tree)")
         device = mesh.lead
     device = resolve_device(device)
     if profile_dir is not None:
@@ -109,11 +113,6 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
     with timer.phase("init"):
         ctx = ProverCtx(stark_info, expressions_info, const_pols, const_tree, device, debug=debug)
         if mesh is not None:
-            if not isinstance(const_tree, ShardedTree):
-                const_tree = merkle_sharded.shard_tree(const_tree, mesh)
-            elif const_tree.mesh is not mesh:
-                raise ValueError("the const tree is split over another mesh")
-            ctx.const_tree = const_tree
             ctx.dshards["const"] = const_tree.shards
     ctx.timer = timer
     ctx.mesh = mesh
@@ -193,7 +192,8 @@ def prove(stark_info, expressions_info, const_pols, const_tree, inputs, device=N
     ctx.challenges_fri_steps.append(challenge_queries)
     fri_queries = _get_permutations(ctx, challenge_queries)
     with timer.phase("queries"):
-        fri.proof_queries(fri_proof, fri_trees, fri_queries)
+        fri.proof_queries(fri_proof, fri_trees, fri_queries,
+                          None if mesh is None else merkle_sharded.gather_group_proofs_multi)
 
     proof = {"evals": ctx.evals, "subproofValues": ctx.subproof_values, "fri": fri_proof}
     for i in range(stark_info["nStages"] + 1):
@@ -349,7 +349,6 @@ def _run_code_sharded(ctx, code_obj, dom):
     for its own run.  Returns each local rank's outputs."""
     mesh, ext_n = ctx.mesh, ctx.ext_N
     prog = torch_tac.compile_program(code_obj, dom, ctx.pil_info, ctx.n_bits, ctx.n_bits_ext)
-    executor = torch_tac.make_executor(code_obj, dom, ctx.pil_info, ctx.n_bits, ctx.n_bits_ext)
     before, after = torch_tac.halo(prog)
     names = sorted({ref[1] for ref in prog.columns if ref[0] == "section"})
     arrays = [ctx.dshards[name] for name in names]
@@ -376,7 +375,7 @@ def _run_code_sharded(ctx, code_obj, dom):
         x = ctx.dx["ext"][rows].to(dv)
         shard = {"sections": sections, "x": x, "Zi": ctx.dZi[:, rows].to(dv),
                  "xDivXSubXi": None if xis is None else dev.compute_xdiv(x, xis)}
-        outs[r] = executor(torch_tac.pack_inputs(ctx, dom, shard), window=(before, b))
+        outs[r] = torch_tac.run(prog, torch_tac.pack_inputs(ctx, dom, shard), (before, b))
         del sections, shard
     return outs
 

@@ -711,6 +711,7 @@ def test_mesh_proof_on_card_equals_cpu(card, name, kind):
     """prove(mesh=) on the card equals the CPU's single-device proof and
     verifies; the fixed columns stay on the lead card."""
     from pil2_stark_tpu_torch.models import gadgets, poseidon_vm
+    from pil2_stark_tpu_torch.parallel import merkle_sharded
     from pil2_stark_tpu_torch.stark import prover, setup, verifier
 
     mesh = _card_mesh(kind)
@@ -724,9 +725,9 @@ def test_mesh_proof_on_card_equals_cpu(card, name, kind):
     for dev, m in ((mesh.lead, mesh), (torch.device("cpu"), None)):
         s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
                              const_cols.buffer, device=dev)
-        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
-                           s["constTree"], (cm_cols.buffer, publics), mesh=m,
-                           device=None if m else dev)
+        tree = s["constTree"] if m is None else merkle_sharded.shard_tree(s["constTree"], m)
+        res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, tree,
+                           (cm_cols.buffer, publics), mesh=m, device=None if m else dev)
         out.append(_canon(res["proof"]))
         if m is not None:
             assert set(res["devicePeakBytes"]["stage1.commit"]) == {

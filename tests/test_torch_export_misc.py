@@ -85,12 +85,18 @@ def test_host_trees_paths_and_transcript_use_the_runtime():
     for width, split in ((3, False), (11, False), (11, True)):
         _check_tree(width, split)
     buff = _rand((2, 11), 9)
-    t, tp = transcript.Transcript(), transcript.Transcript(plain=True)
-    for tr in (t, tp):
-        tr.put([int(v) for v in buff[0]])
-        tr.put(list(range(13)))
-    assert [t.get_field() for _ in range(4)] == [tp.get_field() for _ in range(4)]
-    assert t.get_permutations(9, 11) == tp.get_permutations(9, 11)
+
+    def squeeze():
+        t = transcript.Transcript()
+        t.put([int(v) for v in buff[0]])
+        t.put(list(range(13)))
+        return [t.get_field() for _ in range(4)], t.get_permutations(9, 11)
+
+    want = squeeze()
+    with native.plain_hashing():
+        assert transcript.native is not native
+        assert squeeze() == want
+    assert transcript.native is native and merkle.native is native
 
 
 def _check_tree(width, split):
@@ -99,15 +105,18 @@ def _check_tree(width, split):
     height = 96
     buff = _rand((height, width), 6 + width)
     tree = merkle.merkelize(buff, width, height, split)
-    plain = merkle.merkelize(buff, width, height, split, plain=True)
+    with native.plain_hashing():
+        plain = merkle.merkelize(buff, width, height, split)
     assert len(tree.levels) == len(plain.levels)
     for lvl, ref in zip(tree.levels, plain.levels):
         np.testing.assert_array_equal(lvl, ref)
     for idx in (0, 37, height - 1):
         values, proof = merkle.get_group_proof(tree, idx)
-        for kw in ({}, {"plain": True}):
-            got = merkle.calculate_root_from_proof(proof, idx, values, split, **kw)
-            np.testing.assert_array_equal(got, tree.root)
+        got = merkle.calculate_root_from_proof(proof, idx, values, split)
+        np.testing.assert_array_equal(got, tree.root)
+        with native.plain_hashing():
+            got = merkle.calculate_root_from_proof(proof, idx, values, split)
+        np.testing.assert_array_equal(got, tree.root)
         assert merkle.verify_group_proof(tree.root, proof, idx, values, split)
         bad = values.copy()
         bad[0] = (int(bad[0]) + 1) % P

@@ -166,8 +166,9 @@ assert native.permute_int(list(range(12))) == poseidon_gl.permute_int(list(range
 # the row-sharded prove: fibonacci 2^6 on 2 CPU ranks gives the one-device proof
 mesh = distributed.proof_mesh(devices=["cpu"] * 2)
 const_cols, cm_cols, publics = fibonacci.build(pil["references"], 64)
-sres = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["constTree"],
-                    (cm_cols.buffer, publics), mesh=mesh)
+sres = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                    merkle_sharded.shard_tree(s["constTree"], mesh), (cm_cols.buffer, publics),
+                    mesh=mesh)
 assert json.dumps(sres["proof"], default=str) == json.dumps(res["proof"], default=str)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("IMPORTED", len(names))

@@ -50,7 +50,8 @@ def _mesh_prove(name, ts, d):
     _, const_cols, cm_cols, publics = case_inputs(name)
     mesh = _mesh(d)
     res = tprover.prove(ts["starkInfo"], ts["expressionsInfo"], const_cols.buffer,
-                        ts["constTree"], (cm_cols.buffer, publics), mesh=mesh)
+                        merkle_sharded.shard_tree(ts["constTree"], mesh),
+                        (cm_cols.buffer, publics), mesh=mesh)
     assert mesh.exchanged_bytes > 0 or d == 1
     return res
 
@@ -78,8 +79,8 @@ def test_negative_openings_halos_and_rank_rows():
     """fibv's airs on 2 and 4 ranks under shared external challenges equal
     one device's proof (tests/test_torch_vadcop.py holds that one against
     the JAX package's); each rank holds extN/d rows of every section and
-    pads only by the halo its Q program reads; the const tree is split
-    once per mesh."""
+    pads only by the halo its Q program reads; one split of the const tree
+    serves every prove on its mesh."""
     cm_mod, cm_fib, publics = tfibv.execute(101, 1, 2)
     for name, cm in (("fibv_fibonacci", cm_fib), ("fibv_module", cm_mod)):
         data = tsetup.read_setup(name)
@@ -101,11 +102,13 @@ def test_negative_openings_halos_and_rank_rows():
         ext_n = 1 << ss["nBitsExt"]
         for d in (2, 4):
             mesh = _mesh(d)
-            res = tprover.prove(ts["starkInfo"], ts["expressionsInfo"], fixed, ts["constTree"],
-                                (cm, publics), mesh=mesh, external_challenges=ext)
-            split = ts["constTree"].sharded  # split once per mesh, kept on the tree
-            assert split[0] is mesh and merkle_sharded.shard_tree(ts["constTree"], mesh) is split[1]
-            assert canon(res["proof"]) == canon(one["proof"]), (name, d)
+            split = merkle_sharded.shard_tree(ts["constTree"], mesh)
+            assert [s.shape for s in split.shards] == [(widths["const"], ext_n // d)] * d
+            proofs = [tprover.prove(ts["starkInfo"], ts["expressionsInfo"], fixed, split,
+                                    (cm, publics), mesh=mesh, external_challenges=ext)
+                      for _ in range(2 if d == 2 else 1)]
+            res = proofs[-1]
+            assert all(canon(r["proof"]) == canon(one["proof"]) for r in proofs), (name, d)
             b = ext_n // d
             held = res["rankBytes"]
             assert held["sections"] == [8 * b * sum(widths.values())] * d

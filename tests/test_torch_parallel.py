@@ -208,7 +208,8 @@ def _mesh_prove(name, mesh):
     ts = tsetup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
                            const_cols.buffer, device="cpu")
     res = tprover.prove(ts["starkInfo"], ts["expressionsInfo"], const_cols.buffer,
-                        ts["constTree"], (cm_cols.buffer, publics), mesh=mesh)
+                        merkle_sharded.shard_tree(ts["constTree"], mesh),
+                        (cm_cols.buffer, publics), mesh=mesh)
     return ts, res
 
 
@@ -253,8 +254,15 @@ def test_mesh_prove_refusals(fib_proofs):
                                                 verificationHashType="BN128"))
     with pytest.raises(ValueError, match="BN128"):
         tprover.prove(bn, *args[1:], mesh=mesh)
+    with pytest.raises(ValueError, match="split over its mesh"):
+        tprover.prove(*args, mesh=mesh)
+    with pytest.raises(ValueError, match="split over its mesh"):  # another mesh's split
+        tprover.prove(*args[:3], merkle_sharded.shard_tree(ts["constTree"], mesh), args[4],
+                      mesh=distributed.proof_mesh(devices=[CPU] * 4))
+    sixteen = distributed.proof_mesh(devices=[CPU] * 16)
     with pytest.raises(ValueError, match="must divide both factors"):  # 2^6 over 16 ranks
-        tprover.prove(*args, mesh=distributed.proof_mesh(devices=[CPU] * 16))
+        tprover.prove(*args[:3], merkle_sharded.shard_tree(ts["constTree"], sixteen), args[4],
+                      mesh=sixteen)
 
 
 WORKER = r'''
@@ -262,7 +270,7 @@ import hashlib, json, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 from pil2_stark_tpu_torch.models import fibonacci
-from pil2_stark_tpu_torch.parallel import distributed
+from pil2_stark_tpu_torch.parallel import distributed, merkle_sharded
 from pil2_stark_tpu_torch.stark import prover, setup
 rank, port = int(sys.argv[1]), sys.argv[2]
 distributed.init_distributed(f"localhost:{port}", 2, rank, backend="gloo", timeout_s=50)
@@ -272,8 +280,9 @@ data = setup.read_setup("fibonacci_6")
 const_cols, cm_cols, publics = fibonacci.build(data["references"], 64)
 s = setup.load_setup(data["starkInfo"], data["expressionsInfo"], data["verifierInfo"],
                      const_cols.buffer, device="cpu")
-res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer, s["constTree"],
-                   (cm_cols.buffer, publics), mesh=mesh)
+res = prover.prove(s["starkInfo"], s["expressionsInfo"], const_cols.buffer,
+                   merkle_sharded.shard_tree(s["constTree"], mesh), (cm_cols.buffer, publics),
+                   mesh=mesh)
 def canon(o):
     if isinstance(o, np.ndarray): return canon(o.tolist())
     if isinstance(o, (list, tuple)): return [canon(x) for x in o]
