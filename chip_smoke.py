@@ -11,9 +11,9 @@ Phases, each printing one JSON line:
                    ptxas (B1's 64-point passes and T2 at two openings in
                    their own entry, B2's and B3's passes at the planar
                    transforms of both proves in another), and SASS
-                   instructions per permutation by
-                   class (cuobjdump) of B4 and of the schedule before it,
-                   which X1 still runs;
+                   instructions per permutation by class (cuobjdump) of
+                   B4, of X1 and of each of X2's 20 instantiations, all on
+                   B4's schedule;
   1b. compile    — compile every committed setup (setups/*.json: 10
                    STARK setups, 2 debug setups, the 5 fibv files) with the
                    port's PIL compiler (stark/catalog.py; no JAX here) and
@@ -31,12 +31,17 @@ Phases, each printing one JSON line:
                    require output equal bit for bit to its plain PyTorch
                    version; time both;
   3. tools       — the Poseidon experiment tools: kernel X2 (every variant
-                   of tools/exp_poseidon, at its own 2^16 states with
-                   blocks 512 and 2048) and X1 (tools/exp_stream, at 2^14
-                   and 2^20 states) equal bit for bit to their plain
-                   versions; every variant that computes Poseidon, and X1,
-                   equal to B4 at the prove's leaf batches of 2^22 and
-                   2^25 states and timed beside it; then the two tools'
+                   of tools/exp_poseidon, the control packed-nosq-lazy
+                   included, at its own 2^16 states with blocks 512 and
+                   2048, and at 2^14 corner states) and X1 (tools/exp_stream,
+                   at 2^14 and 2^20 states, at 2^14 corner states and at
+                   2^14 non-canonical u64 states) equal bit for bit to
+                   their plain versions; every variant that computes
+                   Poseidon, and X1, equal to B4 at the prove's leaf
+                   batches of 2^22 and 2^25 states and timed beside it
+                   (vs_b4); every design of X1 (ring depth, CTAs per SM,
+                   stores) equal to B4 and timed beside it at 2^22 and
+                   2^25 (exp_stream.compare_designs); then the two tools'
                    entry points on the card, with X1/X2 launches counted;
   4. small       — prove on the card and on the CPU, and require the two
                    proofs to be identical: the all-gadgets machine at 2^8,
@@ -209,7 +214,8 @@ Then the card's name and power limit, the kernels line, and as the last line
 card; imports nothing of JAX.  `python3 chip_smoke.py --only mesh` runs the
 build, prove_vm and mesh phases alone (for a machine with four cards);
 `--only recursion` the build, the small and cli recursion chains and the
-recursion phase; `--only snark` the build and the snark phase.  Every process the script starts is ended before it
+recursion phase; `--only snark` the build and the snark phase; `--only
+tools` the build, B4 at 2^22 and 2^25 states and the tools phase.  Every process the script starts is ended before it
 exits.
 """
 from __future__ import annotations
@@ -319,8 +325,20 @@ T1_SRC = "pil2_stark_tpu_torch/ops/tac_codegen.py"  # generates T1 per program, 
 PROVE_LAUNCHES = {"tac_program": 3, "gl_xdiv": 1}  # T1 once per program, T2 once
 XLA_FUSION = "counterpart of an XLA fusion, not a pallas_call"
 # the Poseidon experiment tools (tools/exp_poseidon.py, tools/exp_stream.py)
-X2_VARIANTS = ("packed", "packed-nosq", "packed-lazy", "packed-dual", "packed-lazy-dual",
-               "packed-p4x", "packed-psl", "nomxu", "packed-nops", "packed-nofs")
+X2_VARIANTS = ("packed", "packed-nosq", "packed-lazy", "packed-nosq-lazy", "packed-dual",
+               "packed-lazy-dual", "packed-p4x", "packed-psl", "nomxu", "packed-nops",
+               "packed-nofs")
+X2_CONTROL = "packed-nosq-lazy"  # B4's schedule on one state a thread
+# the block of X2's rows beside B4: one state a thread, B4's geometry; the
+# control also at the tool's 2048 (eight states a thread, warps in phase)
+X2_B4_BLOCK = 256
+CORNER_BITS = 14  # the corner-state rows' batch
+X1_DESIGN_CHAIN = {22: (5, 3), 25: (3, 2)}  # compare_designs' chains at 2^22 / 2^25
+# the X1 designs the tools phase times beside B4 (exp_stream.Design: ring,
+# CTAs per SM, bulk stores, warp producers, stagger µs); `python -m
+# pil2_stark_tpu_torch.tools.exp_stream designs` times all 48
+X1_DESIGNS = ((2, 2, True, False, 0), (2, 1, True, False, 0), (4, 2, False, False, 0),
+              (2, 2, False, True, 0), (2, 2, False, True, 120), (2, 2, True, True, 120))
 TOOL_BATCH = 1 << 16  # run_variant's and run_sustained's batch
 TOOL_BLOCKS = (512, 2048)  # run_variant's and run_sustained's block
 X1_BITS = (14, 20)  # exp_stream.main's check size and its largest timed size
@@ -332,6 +350,9 @@ X1_SRC = "pil2_stark_tpu_torch/csrc/poseidon_stream.cu"
 PLANAR_SHAPES = ((N_BITS + 2, False), (N_BITS, True), (LARGE_N_BITS, True), (VM_BITS, False))
 CORNERS = [0, 1, 2, P - 1, P - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
            (1 << 63) - 1, 1 << 63, P - (1 << 32), P - (1 << 32) - 1]
+# u64 words in [p, 2^64): representatives that are not canonical
+NON_CANONICAL = [P + k for k in (0, 1, 2, 3, 7, 1 << 16, 1 << 20, 1 << 31, (1 << 31) + 1,
+                                 (1 << 32) - 4, (1 << 32) - 3, (1 << 32) - 2)]
 
 
 def emit(obj):
@@ -619,11 +640,12 @@ def phase_build(recursion=True):
     ptxas = {name: ptxas_summary(cuda_build.build_log(name)) for name in cuda_build.SOURCES}
     ptxas.update({f"T1 {s}.{w}": ptxas_summary(cuda_build.build_log(lib))
                   for (s, w), (_, lib) in tac.items()})
-    # B4, and the schedule before poseidon_fast.cuh as X1 runs it: one trip
-    # of X1's stage loop is one permutation per thread
+    # B4, X1 (one trip of its stage loop is one permutation per thread) and
+    # each X2 instantiation, all on poseidon_fast.cuh's schedule
     sass = {"poseidon": sass_counts("poseidon", "poseidon_kernel", ROUND_TRIPS),
             "poseidon_stream": sass_counts("poseidon_stream", "stream_kernel", ROUND_TRIPS,
-                                           outer=True)}
+                                           outer=True),
+            **x2_sass()}
     # B1's radix passes at 4096 rows and T2 at the proves' two openings
     b1_t2 = {e[0]: e[1:] for name in ("ntt", "tac") for e in ptxas[name]
              if e[0].startswith("base_rows_pass<6") or e[0] == "xdiv_kernel<2>"}
@@ -634,6 +656,30 @@ def phase_build(recursion=True):
              for p, label in passes.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": times,
           "ptxas": ptxas, "b1_t2_ptxas": b1_t2, "b2_b3_ptxas": b2_b3, "b4_sass": sass})
+
+
+def x2_sass() -> dict:
+    """SASS per permutation of each X2 instantiation (csrc/poseidon_variants.cu
+    variant_kernel<SQ, LAZY, PROBE, NS>), from its part of the split build:
+    one trip of the kernel's state loop permutes NS states."""
+    from pil2_stark_tpu_torch.utils import cuda_build
+
+    out = {}
+    for part in cuda_build.SPLITS["poseidon_variants"]:
+        sq, ns, group = re.fullmatch(r"sq(\d)_ns(\d)_(\w+)", part).groups()
+        ns = int(ns)
+        # (lazy, probe): the permutation canonical and lazy, or the three probes
+        modes = ((0, 1), (0, 2), (0, 3)) if group == "probes" else ((0, 0), (1, 0))
+        for lazy, probe in modes:
+            res = sass_counts(f"poseidon_variants.{part}",
+                              f"variant_kernelILb{sq}ELb{lazy}ELi{probe}ELi{ns}E",
+                              ROUND_TRIPS, outer=True)
+            if res.get("per_permutation"):
+                res["per_permutation"] /= ns
+                res["per_permutation_by_class"] = {
+                    k: v / ns for k, v in res["per_permutation_by_class"].items()}
+            out[f"variant_kernel<sq={sq},lazy={lazy},probe={probe},ns={ns}>"] = res
+    return out
 
 
 def phase_compile():
@@ -1011,10 +1057,28 @@ def variant_imads(variant: str) -> int:
     return (4 * sboxes + mat_muls) * IMAD_PER_GL_MUL - squares + mds
 
 
+def tiled_states(words, bits, device, seed):
+    """(12, 2^bits) states from 12 words: state b holds the words rotated
+    by b (the first 12 states hold one word each in every element), the
+    second half of the batch mixed with random u64."""
+    import numpy as np
+
+    from pil2_stark_tpu_torch.field import torch_gl as gl
+
+    n = 1 << bits
+    w = np.array(words, dtype=np.uint64)
+    a = w[(np.arange(12)[:, None] + np.arange(n)[None, :]) % 12]
+    a[:, :12] = w[None, :]
+    rnd = np.random.default_rng(seed).integers(0, 1 << 64, size=(12, n // 2), dtype=np.uint64)
+    mix = np.random.default_rng(seed + 1).random((12, n // 2)) < 0.5
+    a[:, n // 2:] = np.where(mix, rnd, a[:, n // 2:])
+    return gl.from_u64(a, device)
+
+
 def phase_tools(device, kernel_rows):
-    """X2 and X1 against their plain versions at the tools' shapes and
-    against B4 at the prove's leaf batches; then the tools' entry points,
-    whose launches are counted."""
+    """X2 and X1 against their plain versions at the tools' shapes and at
+    corner states, and against B4 at the prove's leaf batches; X1's designs
+    against B4; then the tools' entry points, whose launches are counted."""
     import torch
 
     from pil2_stark_tpu_torch.hash import cuda_poseidon
@@ -1046,6 +1110,24 @@ def phase_tools(device, kernel_rows):
         fn = exp_stream.build_stream(n // exp_stream.BLK)
         row(x1, exact_err(fn(x), cuda_poseidon.permute_plain(x)), lambda: fn(x),
             lambda: cuda_poseidon.permute_plain(x), POSEIDON_IMAD, n, {"batch": n})
+
+    # corner states: every variant and X1 at the 12 corner words, X1 also at
+    # non-canonical words (it reads any u64, as B4 does)
+    n = 1 << CORNER_BITS
+    for words, label in ((CORNERS, "corners"), (NON_CANONICAL, "non_canonical")):
+        x = tiled_states(words, CORNER_BITS, device, 30 + len(label))
+        fn = exp_stream.build_stream(n // exp_stream.BLK)
+        row(x1, exact_err(fn(x), cuda_poseidon.permute_plain(x)), lambda: fn(x),
+            lambda: cuda_poseidon.permute_plain(x), POSEIDON_IMAD, n,
+            {"batch": n, "states": label})
+        if label != "corners":
+            continue
+        for variant in X2_VARIANTS:
+            fn = exp_poseidon.build(variant, n // 2048, 2048)
+            row(x2, exact_err(fn(x), exp_poseidon.permute_variant_plain(x, variant)),
+                lambda: fn(x), lambda: exp_poseidon.permute_variant_plain(x, variant),
+                variant_imads(variant), n,
+                {"variant": variant, "batch": n, "block": 2048, "states": label})
     del x
     torch.cuda.empty_cache()
 
@@ -1061,14 +1143,15 @@ def phase_tools(device, kernel_rows):
         fn = exp_stream.build_stream(n // exp_stream.BLK)
         r = row(x1, exact_err(fn(x), want), lambda: fn(x), None, POSEIDON_IMAD, n,
                 {"batch": n}, **extra)
-        r.update(b4_ms=b4["ms"], against="B4")
+        r.update(b4_ms=b4["ms"], vs_b4=r["ms"] / b4["ms"], against="B4")
         for variant in X2_VARIANTS:
             if exp_poseidon.parse(variant).probe is not None:
                 continue
-            fn = exp_poseidon.build(variant, n // 2048, 2048)
-            r = row(x2, exact_err(fn(x), want), lambda: fn(x), None, variant_imads(variant),
-                    n, {"variant": variant, "batch": n, "block": 2048}, **extra)
-            r.update(b4_ms=b4["ms"], against="B4")
+            for block in (X2_B4_BLOCK, 2048) if variant == X2_CONTROL else (X2_B4_BLOCK,):
+                fn = exp_poseidon.build(variant, n // block, block)
+                r = row(x2, exact_err(fn(x), want), lambda: fn(x), None, variant_imads(variant),
+                        n, {"variant": variant, "batch": n, "block": block}, **extra)
+                r.update(b4_ms=b4["ms"], vs_b4=r["ms"] / b4["ms"], against="B4")
         del x, want
         torch.cuda.empty_cache()
     for r in rows:
@@ -1076,6 +1159,27 @@ def phase_tools(device, kernel_rows):
     bad = [(r["name"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"tool kernels disagree with their plain versions or B4: {bad}")
+
+    # B4's time split by X2's probes, and the variants beside B4
+    t0 = time.perf_counter()
+    split = exp_poseidon.decompose(device, bits=tuple(sorted(X1_DESIGN_CHAIN)),
+                                   block=X2_B4_BLOCK, chain=X1_DESIGN_CHAIN[max(X1_DESIGN_CHAIN)])
+    emit({"phase": "tools_decomposition", "seconds": time.perf_counter() - t0, **split})
+    torch.cuda.empty_cache()
+
+    # X1's designs beside B4, each one's output equal to B4's
+    t0 = time.perf_counter()
+    default = exp_stream.default_design()
+    chosen = [default] + [d for d in map(exp_stream.Design._make, X1_DESIGNS) if d != default]
+    designs = {b: exp_stream.compare_designs(device, bits=(b,), designs=chosen,
+                                             chain=X1_DESIGN_CHAIN[b])
+               for b in sorted(X1_DESIGN_CHAIN)}
+    emit({"phase": "tools_x1_designs", "seconds": time.perf_counter() - t0,
+          "default": default._asdict(),
+          "sizes": {b: d["sizes"][b] for b, d in designs.items()}})
+    if not all(d["ok"] for d in designs.values()):
+        raise AssertionError("an X1 design disagrees with B4")
+    torch.cuda.empty_cache()
 
     # the tools' entry points, counted
     exp_poseidon.permute_variant.launches = 0
@@ -3124,8 +3228,8 @@ def main(argv):
     if argv[:1] == ["--mesh-worker"]:
         return mesh_worker(*argv[1:])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("mesh", "recursion", "snark"):
-        print("usage: chip_smoke.py [--only mesh|recursion|snark]", file=sys.stderr)
+    if argv and only not in ("mesh", "recursion", "snark", "tools"):
+        print("usage: chip_smoke.py [--only mesh|recursion|snark|tools]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3166,12 +3270,19 @@ def main(argv):
 
 
 def run_phases(device, counters, only):
-    """Every phase in order (or those of `--only mesh|recursion|snark`):
+    """Every phase in order (or those of `--only mesh|recursion|snark|tools`):
     (kernel rows, tool rows, {path: launches})."""
     import torch
 
-    phase_build(recursion=only not in ("mesh", "snark"))
+    phase_build(recursion=only not in ("mesh", "snark", "tools"))
     rows, tool_rows, launches = [], [], {}
+    if only == "tools":  # B4's rows are the tools' yardstick, not listed
+        b4 = [_poseidon_row(device, 1 << (N_BITS + 2), f"all_{N_BITS}"),
+              _poseidon_row(device, 1 << LARGE_BITS, LARGE_SETUP)]
+        for r in b4:
+            emit({"phase": "kernels", **r})
+        tool_rows, launches = phase_tools(device, b4)
+        return rows, tool_rows, launches
     if only == "snark":
         rows, snark = start_snark(device, counters)
         launches["snark"] = phase_snark(snark)

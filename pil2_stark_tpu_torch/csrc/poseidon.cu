@@ -36,12 +36,12 @@ poseidon_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                 long long batch) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
-  uint64_t s[T];
+  uint64_t s[1][T];
 #pragma unroll
-  for (int i = 0; i < T; ++i) s[i] = in[i * batch + b];
-  poseidon_fast::permute(s);
+  for (int i = 0; i < T; ++i) s[0][i] = in[i * batch + b];
+  poseidon_fast::permute<poseidon_fast::B4Schedule>(s);
 #pragma unroll
-  for (int i = 0; i < T; ++i) out[i * batch + b] = s[i];
+  for (int i = 0; i < T; ++i) out[i * batch + b] = s[0][i];
 }
 
 }  // namespace

@@ -1,23 +1,41 @@
-// Poseidon-GL permutation streamed through a persistent grid with
-// double-buffered asynchronous copies: kernel X1.
+// Poseidon-GL permutation streamed through a persistent grid, its input
+// brought in by Hopper's bulk-copy engine: kernel X1.
 //
 // Replaces the Pallas kernel of tools/exp_stream.py (build_stream :108 ->
 // pallas_call :120, body _make_stream_kernel :55), which runs B4's body on
 // tiles of 2048 states in one grid step while a hand-rolled pair of DMA
 // buffers streams the next tile in and the last one out (:55-104).  The
-// permutation is B4's (poseidon_perm.cuh, canonical operations).
+// question it asks, whether overlapping the next tile's copies with this
+// one's permutation pays, is asked here of B4's schedule
+// (poseidon_fast.cuh B4Schedule: any u64 in, canonical out, so nothing is
+// canonicalised on load) and of the card's copy engine.
 //
-// Design.  One CTA per SM that fits (B4's 255 registers a thread leave
-// room for one 256-thread CTA; the occupancy query decides), each walking
-// the 2048-state tiles tile = cta, cta + grid, ...  A tile of 12 × 2048 u64
-// is 192 KiB, and two do not fit in the 227 KiB a CTA may hold, so the
-// tile streams as 8 stages of 256 states (one state per thread), each
-// (12, 256) u64 = 24 KiB.  Stage s+1's copy is issued with 16-byte
-// cp.async.cg into one shared buffer (commit/wait groups) while stage s is
-// read from the other and permuted in registers: the Hopper counterpart of
-// make_async_copy and its DMA semaphores.  The output leaves by coalesced
-// stores from registers (a warp writes 32 adjacent words of each row), not
-// through shared buffers: a store does not stall the thread that issues it.
+// Design.  A persistent grid of `per_sm` CTAs of 256 threads per SM, each
+// walking the 2048-state tiles tile = cta, cta + grid, ...  A tile streams
+// as 8 steps of 256 states (one state per thread), each (12, 256) u64 =
+// 24 KiB in shared memory, through a ring of `ring` such stages.  Copies
+// are one-dimensional bulk copies (cp.async.bulk ...
+// mbarrier::complete_tx::bytes), one per row, completing on an mbarrier
+// armed with the stage's bytes (arrive.expect_tx); rows start at
+// multiples of 32 words, so they are 16-byte aligned.  No thread spends a
+// register or an instruction per word on a copy.  Two producers:
+//   cta   thread 0 fills each stage with 12 copies of 2 KiB; each warp,
+//         once it has read its columns, arrives on the stage's `empty`
+//         mbarrier, and at the start of step s thread 0 refills the slot
+//         of step s-1 with step s-1+ring once all 8 warps have arrived;
+//   warp  each warp owns a (12, 32) slice of every stage and its own
+//         mbarriers: its lane 0 refills its slice with 12 copies of 256 B
+//         as soon as the warp has read it.  No warp waits on another.
+// Output leaves by coalesced stores from registers (a warp writes 32
+// adjacent words of each row) or, with `bulk`, through a shared stage
+// (per CTA or per warp, as the producer) and 12 bulk stores
+// (cp.async.bulk.global.shared, one bulk group a step).  `stagger_us`
+// delays the start of each warp (warp mode) or CTA (cta mode) by its
+// share of that many microseconds, so that the SM's warps do not run the
+// permutation in phase (every warp of a persistent grid starts at once,
+// and warps in one phase all want the same pipe).  The permutation keeps
+// B4's register budget (__launch_bounds__(256, 2): at most 128
+// registers).
 //
 // Bound on the H100: integer multiplies, as B4: 192 bytes move per
 // permutation against 1,122 GL multiplies, so overlapping the copies can
@@ -25,89 +43,261 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "poseidon_perm.cuh"
+#include "poseidon_fast.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // = states per stage
-constexpr int kTile = 2048;       // states per tile (exp_stream.py's BLK)
-constexpr int kStages = kTile / kThreads;
-constexpr int kChunks = poseidon::T * kThreads / 2;  // 16-byte chunks per stage
+constexpr int kThreads = 256;                    // = states per stage
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 2048;                      // states per tile (exp_stream.py's BLK)
+constexpr int kStagesPerTile = kTile / kThreads;
+constexpr int kStageWords = poseidon::T * kThreads;
+constexpr int kStageBytes = kStageWords * 8;
+constexpr int kMaxRing = 4;
 using poseidon::T;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+struct Design {
+  int ring;        // stages in the ring, 2..kMaxRing
+  int per_sm;      // CTAs per SM asked for
+  int bulk;        // 1: bulk stores through shared memory
+  int warp_ring;   // 1: each warp fills its own slice (else thread 0 the stage)
+  int stagger_us;  // start delay spread over the SM's warps (or CTAs)
+};
+
+// the design poseidon_stream runs (PERF.md §6 has the others' times)
+constexpr Design kDefault = {2, 2, 1, 0, 0};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-              long long batch) {
-  __shared__ __align__(16) uint64_t buf[2][T][kThreads];
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n\t.reg .pred p;\n\t"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+               "selp.u32 %0, 1, 0, p;\n\t}"
+               : "=r"(done)
+               : "r"(smem_u32(bar)), "r"(parity)
+               : "memory");
+  return done != 0;
+}
+
+// Until the phase of parity `parity` has completed.  A wait of more than
+// about ten seconds (a copy that never lands) traps: the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A stage of `width` states as (T, width) u64 at `base`, rows `ld` words
+// apart in device memory from column c0: 12 bulk copies completing on bar.
+__device__ __forceinline__ void fill(uint64_t* base, int width, const uint64_t* in,
+                                     long long ld, long long c0, uint64_t* bar) {
+  mbar_expect_tx(bar, T * width * 8);
+#pragma unroll
+  for (int i = 0; i < T; ++i) bulk_load(base + i * width, in + i * ld + c0, width * 8, bar);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long batch,
+              Design d, int cta_slot_of) {
+  // ring stages, then the output stage; in warp mode warp w's slice of
+  // stage k is the (T, 32) block at k·kStageWords + w·32·T
+  extern __shared__ __align__(128) uint64_t smem[];
+  __shared__ __align__(8) uint64_t full[kMaxRing][kWarps], empty[kMaxRing];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool wr = d.warp_ring != 0;
+  const int ring = d.ring;
   const long long n_tiles = batch / kTile;
   const long long my_tiles =
       blockIdx.x < n_tiles ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-  const long long n_steps = my_tiles * kStages;
-  // first column of this CTA's stage st
+  const long long n_steps = my_tiles * kStagesPerTile;
+  // first column of this CTA's step st
   auto col0 = [&](long long st) {
-    return (blockIdx.x + (st / kStages) * gridDim.x) * kTile + (st % kStages) * kThreads;
+    return (blockIdx.x + (st / kStagesPerTile) * gridDim.x) * kTile +
+           (st % kStagesPerTile) * kThreads;
   };
-  auto issue = [&](long long st, int slot) {
-    const long long c0 = col0(st);
-    for (int q = threadIdx.x; q < kChunks; q += kThreads) {
-      const int row = q / (kThreads / 2);
-      const int col = 2 * (q % (kThreads / 2));
-      cp_async16(&buf[slot][row][col], in + row * batch + c0 + col);
-    }
+  // this thread's word i of a stage (or of the output stage) at `base`
+  auto at = [&](uint64_t* base, int i) -> uint64_t& {
+    return wr ? base[warp * 32 * T + i * 32 + lane] : base[i * kThreads + tid];
+  };
+  auto issue = [&](long long st, int slot) {  // thread 0, or lane 0 of each warp
+    uint64_t* base = smem + (long long)slot * kStageWords;
+    if (wr) fill(base + warp * 32 * T, 32, in, batch, col0(st) + warp * 32, &full[slot][warp]);
+    else fill(base, kThreads, in, batch, col0(st), &full[slot][0]);
   };
 
-  if (n_steps > 0) issue(0, 0);
-  cp_async_commit();
+  if (tid == 0) {
+    for (int r = 0; r < ring; ++r) {
+      for (int w = 0; w < kWarps; ++w) mbar_init(&full[r][w], 1);
+      mbar_init(&empty[r], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (d.stagger_us > 0) {
+    // this warp's (or CTA's) place among the SM's, spread over stagger_us
+    const int per_sm = gridDim.x / cta_slot_of > 0 ? (int)(gridDim.x / cta_slot_of) : 1;
+    const int cta_slot = (int)(blockIdx.x / cta_slot_of);
+    const long long place = wr ? (long long)cta_slot * kWarps + warp : cta_slot;
+    const long long places = wr ? (long long)per_sm * kWarps : per_sm;
+    const unsigned long long until = globaltimer() + 1000ull * d.stagger_us * place / places;
+    while (globaltimer() < until) __nanosleep(1000);
+  }
+  if (wr ? lane == 0 : tid == 0)
+    for (int r = 0; r < ring && r < n_steps; ++r) issue(r, r);
+  uint64_t* ostage = smem + (long long)ring * kStageWords;
+
 #pragma unroll 1
   for (long long st = 0; st < n_steps; ++st) {
-    const int slot = (int)(st & 1);
-    // the other buffer was last read in step st-1, before its second barrier
-    if (st + 1 < n_steps) issue(st + 1, slot ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's copies of stage st have landed
-    __syncthreads();     // and every thread's
+    const int slot = (int)(st % ring);
+    const uint32_t parity = (uint32_t)((st / ring) & 1);
+    if (!wr && tid == 0 && st > 0 && st - 1 + ring < n_steps) {
+      const int prev = (int)((st - 1) % ring);
+      mbar_wait(&empty[prev], (uint32_t)(((st - 1) / ring) & 1));
+      issue(st - 1 + ring, prev);
+    }
+    mbar_wait(&full[slot][wr ? warp : 0], parity);
+    uint64_t* stage = smem + (long long)slot * kStageWords;
     uint64_t s[1][T];
 #pragma unroll
-    for (int i = 0; i < T; ++i) s[0][i] = gl::canon(buf[slot][i][threadIdx.x]);
-    __syncthreads();     // buffer `slot` is free for step st+1's copy
-    poseidon::permute<poseidon::CanonicalOps, poseidon::kNone>(s);
-    const long long c = col0(st) + threadIdx.x;
+    for (int i = 0; i < T; ++i) s[0][i] = at(stage, i);
+    __syncwarp();
+    if (lane == 0) {
+      if (!wr) {
+        mbar_arrive(&empty[slot]);
+      } else if (st + ring < n_steps) {
+        // the warp's reads of the slice before the copy engine's writes
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        issue(st + ring, slot);
+      }
+    }
+    poseidon_fast::permute<poseidon_fast::B4Schedule>(s);
+    const long long c0 = col0(st);
+    if (!d.bulk) {
 #pragma unroll
-    for (int i = 0; i < T; ++i) out[i * batch + c] = s[0][i];
+      for (int i = 0; i < T; ++i) out[i * batch + c0 + tid] = s[0][i];
+      continue;
+    }
+    // the last step's bulk stores have read the output stage
+    if (wr ? lane == 0 : tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    if (wr) __syncwarp();
+    else __syncthreads();
+#pragma unroll
+    for (int i = 0; i < T; ++i) at(ostage, i) = s[0][i];
+    // make the writes visible to the copy engine (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (wr) __syncwarp();
+    else __syncthreads();
+    if (wr ? lane == 0 : tid == 0) {
+      if (wr) {
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+          bulk_store(out + i * batch + c0 + warp * 32, ostage + warp * 32 * T + i * 32, 32 * 8);
+      } else {
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+          bulk_store(out + i * batch + c0, ostage + i * kThreads, kThreads * 8);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
   }
-  cp_async_wait<0>();
+  if (d.bulk && (wr ? lane == 0 : tid == 0))
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// The persistent grid of a design: per_sm CTAs on each SM, or as many as
+// fit; never more CTAs than tiles.  *sms gets the card's SM count.
+cudaError_t grid_of(long long n_tiles, const Design& d, int* grid, int* smem, int* sms) {
+  int device = 0, fit = 0;
+  *smem = (d.ring + d.bulk) * kStageBytes;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (kMaxRing + 1) * kStageBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, stream_kernel, kThreads, *smem);
+  if (err != cudaSuccess) return err;
+  long long g = (long long)*sms * (fit < d.per_sm ? (fit > 0 ? fit : 1) : d.per_sm);
+  *grid = (int)(g > n_tiles ? n_tiles : g);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // in/out: (12, batch) u64 on the card, batch a multiple of 2048, both
-// 16-byte aligned.  Returns the CUDA error of the launch.
-extern "C" int poseidon_stream(const void* in, void* out, long long batch, void* stream) {
+// 16-byte aligned.  design: {ring 2..4, CTAs per SM asked for, bulk stores
+// 0/1, warp producers 0/1, stagger in microseconds}.  *grid gets the CTAs
+// launched.  Returns the CUDA error of the launch, or -1 for a design out
+// of range.
+extern "C" int poseidon_stream_design(const void* in, void* out, long long batch,
+                                      const int* design, int* grid, void* stream) {
+  const Design d = {design[0], design[1], design[2], design[3], design[4]};
+  if (d.ring < 2 || d.ring > kMaxRing || d.per_sm < 1 || (d.bulk != 0 && d.bulk != 1) ||
+      (d.warp_ring != 0 && d.warp_ring != 1) || d.stagger_us < 0)
+    return -1;
+  *grid = 0;
   if (batch <= 0) return 0;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_kernel, kThreads, 0);
+  int smem = 0, sms = 0;
+  cudaError_t err = grid_of(batch / kTile, d, grid, &smem, &sms);
   if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = batch / kTile;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > n_tiles) grid = n_tiles;
-  stream_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, batch);
+  stream_kernel<<<(unsigned)*grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint64_t*)in, (uint64_t*)out, batch, d, sms);
   return (int)cudaGetLastError();
+}
+
+// The design poseidon_stream runs, as poseidon_stream_design takes it.
+extern "C" void poseidon_stream_default(int* design) {
+  design[0] = kDefault.ring;
+  design[1] = kDefault.per_sm;
+  design[2] = kDefault.bulk;
+  design[3] = kDefault.warp_ring;
+  design[4] = kDefault.stagger_us;
+}
+
+extern "C" int poseidon_stream(const void* in, void* out, long long batch, void* stream) {
+  int design[5], grid = 0;
+  poseidon_stream_default(design);
+  return poseidon_stream_design(in, out, batch, design, &grid, stream);
 }

@@ -14,8 +14,10 @@ matrices are compiled in from csrc/poseidon_constants.cuh, which
 
 The kernel's schedule (csrc/poseidon_fast.cuh: lazy values, one reduction
 per dot product, carry chains) has a twin on python ints here,
-``permute_fast_int`` and its helpers, which follows each carry and borrow
-of the kernel's asm and checks the bounds the kernel relies on.
+``permute_schedule_int`` (B4's instance ``permute_fast_int``, and X2's
+canonical, squaring and probe instances) and its helpers, which follows
+each carry and borrow of the kernel's asm and checks the bounds the kernel
+relies on.
 """
 from __future__ import annotations
 
@@ -174,12 +176,26 @@ def mul_lazy(a: int, b: int) -> int:
     return reduce128(*mul128(a, b))
 
 
-def sbox_add(x: int, c: int) -> int:
-    """(x^7 + c) mod p, lazy; c is added to the last product."""
-    x2 = mul_lazy(x, x)
-    x3 = mul_lazy(x2, x)
-    x4 = mul_lazy(x2, x2)
-    return mad_reduce(x4, x3, c)
+def sqr_wide(a: int) -> tuple[int, int]:
+    """a^2 as (lo, hi) from three 32x32 products (mul.wide.u32 al·al,
+    ah·ah, al·ah), the cross term added at 2^33 by add.cc / addc."""
+    al, ah = a & EPS, a >> 32
+    m = al * ah
+    lo = al * al + ((m << 33) & W)
+    hi = ah * ah + (m >> 31) + (lo >> 64)
+    assert hi <= W
+    return lo & W, hi
+
+
+def add_c(x: int, c: int) -> int:
+    """x + c for c < p, lazy: a carry out of 2^64 folds once as EPS."""
+    assert c < PRIME
+    t = x + c
+    return t - (1 << 64) + EPS if t > W else t
+
+
+def canon(x: int) -> int:
+    return x - PRIME if x >= PRIME else x
 
 
 def acc3_mad(acc: tuple[int, int, int], a: int, b: int) -> tuple[int, int, int]:
@@ -227,29 +243,68 @@ def mds_lazy(s: list) -> list:
     return out
 
 
-def permute_fast_int(state) -> list:
-    """One state (12 ints, any u64) through B4's schedule; canonical out."""
+def permute_schedule_int(state, canonical: bool = False, sq: bool = False,
+                         probe: str | None = None) -> list:
+    """One state (12 ints, any u64) through csrc/poseidon_fast.cuh's
+    Schedule<canonical, sq, probe>, with the kernel's representative at
+    every step: ``canonical`` canonicalises each reduction's result, ``sq``
+    squares by sqr_wide, ``probe`` is None or one of "nomxu", "nops",
+    "nofs".  The defaults are B4's schedule; canonical out but for nomxu."""
+    flip = probe == "nomxu"
     c = [int(v) for v in ref.C]
     sm = [int(v) for v in ref.S]
     pm = [[int(v) for v in row] for row in ref.P]
-    s = []
-    for i in range(T):
-        t = int(state[i]) + c[i]
-        s.append(t - (1 << 64) + EPS if t > W else t)
+
+    def out(x):
+        return canon(x) if canonical else x
+
+    def mul(a, b):
+        return out(mul_lazy(a, b))
+
+    def sqr(a):
+        return out(reduce128(*sqr_wide(a))) if sq else mul(a, a)
+
+    def sbox_add(x, k):
+        x2 = sqr(x)
+        x3 = mul(x2, x)
+        x4 = sqr(x2)
+        if flip:  # the plain version's representative: canonical x^7, then + k
+            return add_c(canon(mul_lazy(x4, x3)), k)
+        return out(mad_reduce(x4, x3, k))
+
+    def full(s, off):
+        if probe == "nofs":
+            return [out(add_c(x, c[off + i])) for i, x in enumerate(s)]
+        return [sbox_add(x, c[off + i]) for i, x in enumerate(s)]
+
+    def mds(s):
+        return [x ^ 1 for x in s] if flip else [out(x) for x in mds_lazy(s)]
+
+    s = [out(add_c(int(state[i]), c[i])) for i in range(T)]
     for r in range(HALF_F - 1):
-        s = mds_lazy([sbox_add(x, c[(r + 1) * T + i]) for i, x in enumerate(s)])
-    s = [sbox_add(x, c[HALF_F * T + i]) for i, x in enumerate(s)]
-    s = [dot_lazy(s, [pm[j][i] for j in range(T)]) for i in range(T)]
+        s = mds(full(s, (r + 1) * T))
+    s = full(s, HALF_F * T)
+    s = [x ^ 1 for x in s] if flip else [
+        out(dot_lazy(s, [pm[j][i] for j in range(T)])) for i in range(T)]
     for r in range(RP):
+        k = c[(HALF_F + 1) * T + r]
+        if flip:
+            s = [x ^ 1 for x in [sbox_add(s[0], k)] + s[1:]]
+            continue
         srow = sm[(2 * T - 1) * r:(2 * T - 1) * (r + 1)]
-        s0 = sbox_add(s[0], c[(HALF_F + 1) * T + r])
-        new0 = dot_lazy(s[1:] + [s0], srow[1:T] + [srow[0]])  # the kernel's order
-        s = [new0] + [mad_reduce(s0, srow[T + k - 1], s[k]) for k in range(1, T)]
+        s0 = out(add_c(s[0], k)) if probe == "nops" else sbox_add(s[0], k)
+        new0 = out(dot_lazy(s[1:] + [s0], srow[1:T] + [srow[0]]))  # the kernel's order
+        s = [new0] + [out(mad_reduce(s0, srow[T + j - 1], s[j])) for j in range(1, T)]
     base = (HALF_F + 1) * T + RP
     for r in range(HALF_F - 1):
-        s = mds_lazy([sbox_add(x, c[base + r * T + i]) for i, x in enumerate(s)])
-    s = mds_lazy([sbox_add(x, 0) for x in s])
-    return [x - PRIME if x >= PRIME else x for x in s]
+        s = mds(full(s, base + r * T))
+    s = mds([sbox_add(x, 0) for x in s])  # under every probe
+    return s if flip else [canon(x) for x in s]
+
+
+def permute_fast_int(state) -> list:
+    """One state (12 ints, any u64) through B4's schedule; canonical out."""
+    return permute_schedule_int(state)
 
 
 def constants_header() -> str:

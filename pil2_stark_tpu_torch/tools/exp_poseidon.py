@@ -3,10 +3,13 @@ beside their plain PyTorch version, and the tool that times them.
 
 Counterpart of tools/exp_poseidon.py (``build`` :431, ``run_variant``
 :477, ``run_sustained`` :527).  A variant is named as there, by the
-tokens its name contains:
+tokens its name contains; on the card each is an instance of kernel B4's
+schedule (csrc/poseidon_fast.cuh), and ``packed-nosq-lazy`` is B4's
+schedule itself, the control:
 
   nosq   x^7 by four general multiplies (otherwise dedicated squarings);
-  lazy   any-u64 representatives between operations, one canon at exit;
+  lazy   any-u64 representatives between operations, one canon at exit
+         (otherwise every reduction is canonicalised);
   dual   two independent states per thread (two lane halves on the TPU);
   p4x, psl   the TPU's register layout of the partial-round S-box: the
          same function, and on the card the base schedule;
@@ -45,6 +48,12 @@ from ..utils.timing import chain_ms
 P = gl.P_INT
 T = cp.T
 PROBES = ("nomxu", "nops", "nofs")
+CONTROL = "packed-nosq-lazy"  # B4's schedule, one state a thread
+# decompose's bases and their probes: the matrices (nomxu), the partial
+# S-boxes (nops) and the full S-boxes (nofs) dropped from the squaring and
+# the general-multiply schedule
+DECOMPOSITION = {"packed": ("nomxu", "packed-nops", "packed-nofs"),
+                 "packed-nosq": ("nosq-nomxu", "packed-nosq-nops", "packed-nosq-nofs")}
 # csrc/poseidon_variants.cu's mode argument
 _MODES = {None: 0, "nomxu": 1, "nops": 2, "nofs": 3}
 _MODE_LAZY = 4
@@ -123,6 +132,15 @@ def permute_variant_plain(state: torch.Tensor, variant: str) -> torch.Tensor:
         s = full(s, base + r * T, mds)
     # the S-box before the last matrix runs under every probe
     return linear(gl.pow7(s), mds)
+
+
+def permute_variant_int(state, variant: str) -> list:
+    """One state (12 ints, any u64) through the kernel's instance of B4's
+    schedule for `variant`, on python ints (cuda_poseidon's twin): the
+    kernel's representative at every step.  Equal to permute_variant_plain
+    word for word, the nomxu flips included."""
+    v = parse(variant)
+    return cp.permute_schedule_int(state, canonical=not v.lazy, sq=v.sq, probe=v.probe)
 
 
 def _lib(v: Variant):
@@ -232,6 +250,39 @@ def run_sustained(variant: str, block: int = 2048, batch: int = 1 << 16, device=
            "device": _device_name(dev)}
     print(f"{variant:28s} block={block:5d} sustained {res['perms_per_s'] / 1e6:9.1f}M perms/s "
           f"({ms:.3f} ms, {res['device']})", flush=True)
+    return res
+
+
+def decompose(device=None, bits=(22, 25), block: int = 2048, chain=(5, 3),
+              seed: int = 0) -> dict:
+    """B4's time split by the probes.  At each 2^bits random states, in one
+    run: B4 (before and after the rest), the control, ``packed-lazy``,
+    each base of DECOMPOSITION and each of its probes, as chains of
+    chain[0] calls, the best of chain[1].  A base minus its probe is the
+    time of the work the probe drops, given in ms and as a share of B4's
+    mean; the control minus the probe beside it."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    res = {"device": _device_name(dev), "block": block, "sizes": {}}
+    names = [CONTROL, "packed-lazy"] + [v for base, probes in DECOMPOSITION.items()
+                                        for v in (base, *probes)]
+    for b in bits:
+        n = 1 << b
+        x = gl.from_u64(rng.integers(0, P, size=(T, n), dtype=np.uint64), dev)
+        b4 = [chain_ms(cp.permute, x, *chain)]
+        ms = {v: chain_ms(build(v, n // block, block), x, *chain) for v in names}
+        b4.append(chain_ms(cp.permute, x, *chain))
+        mean = sum(b4) / 2
+        drops = {probe: {"base": base, "dropped_ms": ms[base] - ms[probe],
+                         "share_of_b4": (ms[base] - ms[probe]) / mean,
+                         "control_minus_probe_ms": ms[CONTROL] - ms[probe]}
+                 for base, probes in DECOMPOSITION.items() for probe in probes}
+        res["sizes"][b] = {"b4_ms": b4, "ms": ms, "vs_b4": {v: t / mean for v, t in ms.items()},
+                           "drops": drops}
+        print(f"decompose 2^{b}: B4 {b4[0]:.3f}/{b4[1]:.3f} ms, control {ms[CONTROL]:.3f} ms, "
+              + ", ".join(f"{p} drops {d['share_of_b4']:.1%}" for p, d in drops.items())
+              + f" ({res['device']})", flush=True)
+        del x
     return res
 
 

@@ -162,8 +162,11 @@ def test_merkle_tree_on_card_equals_host_tree(card):
         np.testing.assert_array_equal(torch_gl.to_u64(got).T, want)
 
 
-X2_VARIANTS = ["packed", "packed-nosq", "packed-lazy", "packed-dual", "packed-lazy-dual",
-               "packed-p4x", "packed-psl", "nomxu", "packed-nops", "packed-nofs"]
+X2_VARIANTS = ["packed", "packed-nosq", "packed-lazy", "packed-nosq-lazy", "packed-dual",
+               "packed-lazy-dual", "packed-p4x", "packed-psl", "nomxu", "packed-nops",
+               "packed-nofs"]
+CORNERS = [0, 1, 2, P - 1, P - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
+           (1 << 63) - 1, 1 << 63, P - (1 << 32), P - (1 << 32) - 1]
 
 
 @pytest.mark.parametrize("variant", X2_VARIANTS)
@@ -184,6 +187,73 @@ def test_stream_kernel_equals_plain(card, bits):
     got = exp_stream.build_stream((1 << bits) // exp_stream.BLK)(s)
     assert exp_stream.permute_stream.launches == before + 1
     assert torch.equal(got, cuda_poseidon.permute_plain(s))
+
+
+def test_control_variant_equals_b4(card):
+    """packed-nosq-lazy is B4's schedule: the same words as B4 at 2^14."""
+    s = _rand((12, 1 << 14), 41, card)
+    got = exp_poseidon.build("packed-nosq-lazy", 8, 2048)(s)
+    assert torch.equal(got, cuda_poseidon.permute(s))
+
+
+def _tiled(words, n, device):
+    """n states, state b the 12 words rotated by b."""
+    w = np.array(words, dtype=np.uint64)
+    return torch_gl.from_u64(w[(np.arange(12)[:, None] + np.arange(n)[None, :]) % 12], device)
+
+
+@pytest.mark.parametrize("tool", ["stream"] + X2_VARIANTS)
+def test_tools_at_corner_states(card, tool):
+    """X1 and every X2 variant on the corner words, tiled over 2^14 states."""
+    s = _tiled(CORNERS, 1 << 14, card)
+    if tool == "stream":
+        assert torch.equal(exp_stream.permute_stream(s), cuda_poseidon.permute_plain(s))
+    else:
+        got = exp_poseidon.build(tool, 8, 2048)(s)
+        assert torch.equal(got, exp_poseidon.permute_variant_plain(s, tool))
+
+
+def test_stream_non_canonical_inputs(card):
+    """X1 reads any u64 as its residue (no canon on load), as B4 does."""
+    a = np.random.default_rng(7).integers(P, 1 << 64, size=(12, 1 << 14), dtype=np.uint64)
+    a[:, :2] = np.array([[P], [(1 << 64) - 1]], dtype=np.uint64).T
+    s = torch_gl.from_u64(a, card)
+    got = exp_stream.permute_stream(s)
+    assert torch.equal(got, cuda_poseidon.permute_plain(s))
+    assert torch.equal(got, cuda_poseidon.permute(s))
+
+
+@pytest.mark.parametrize("states", [(1 << 19) + 2048, (1 << 20) + 2048])
+@pytest.mark.parametrize("design", [None] + list(exp_stream.DESIGNS))
+def test_stream_ragged_grid(card, states, design):
+    """Tile counts that do not divide the persistent grid (257 and 513
+    tiles), under every design of X1."""
+    s = _rand((12, states), states % 1000, card)
+    assert torch.equal(exp_stream.permute_stream(s, design), cuda_poseidon.permute(s))
+
+
+def _first_round_overflow(word0) -> int:
+    """An element 0 whose first full round ends in a sum in [p, 2^64), the
+    representative nomxu's first flip acts on (tests/test_torch_exp_poseidon)."""
+    c = [int(v) for v in cuda_poseidon.ref.C]
+    y = (P - c[12] + word0) % P
+    return (pow(y, pow(7, -1, P - 1), P) - c[0]) % P
+
+
+def test_nomxu_next_to_p(card):
+    """nomxu flips the plain version's representatives word for word: states
+    whose words lie next to p (flips of p - 1 give p), and states whose
+    first round ends in [p, 2^64)."""
+    rng = np.random.default_rng(8)
+    near = np.array([P - 1, P - 2, P - 3, P - (1 << 32), P + 1, P, 0, 1], dtype=np.uint64)
+    a = near[rng.integers(0, near.size, size=(12, 1 << 14))]
+    a[0, :64] = [_first_round_overflow(k) for k in range(1, 65)]
+    s = torch_gl.from_u64(a, card)
+    got = exp_poseidon.build("nomxu", 8, 2048)(s)
+    want = exp_poseidon.permute_variant_plain(s, "nomxu")
+    assert torch.equal(got, want)
+    assert [int(x) for x in torch_gl.to_u64(got[:, 0])] == exp_poseidon.permute_variant_int(
+        [int(x) for x in a[:, 0]], "nomxu")
 
 
 def _tac_inputs(info, dom, n, seed, device):
