@@ -333,12 +333,12 @@ X2_CONTROL = "packed-nosq-lazy"  # B4's schedule on one state a thread
 # control also at the tool's 2048 (eight states a thread, warps in phase)
 X2_B4_BLOCK = 256
 CORNER_BITS = 14  # the corner-state rows' batch
-X1_DESIGN_CHAIN = {22: (5, 3), 25: (3, 2)}  # compare_designs' chains at 2^22 / 2^25
+X1_DESIGN_CHAIN = {22: (3, 2), 25: (2, 2)}  # decompose's, compare_designs' chains
 # the X1 designs the tools phase times beside B4 (exp_stream.Design: ring,
-# CTAs per SM, bulk stores, warp producers, stagger µs); `python -m
-# pil2_stark_tpu_torch.tools.exp_stream designs` times all 48
-X1_DESIGNS = ((2, 2, True, False, 0), (2, 1, True, False, 0), (4, 2, False, False, 0),
-              (2, 2, False, True, 0), (2, 2, False, True, 120), (2, 2, True, True, 120))
+# CTAs per SM, stores, threads); `python -m
+# pil2_stark_tpu_torch.tools.exp_stream designs` times all of them
+X1_DESIGNS = ((3, 1, "sync", 512), (2, 1, "sync", 512), (3, 1, "registers", 512),
+              (3, 2, "sync", 256), (3, 2, "bulk", 256), (3, 2, "registers", 256))
 TOOL_BATCH = 1 << 16  # run_variant's and run_sustained's batch
 TOOL_BLOCKS = (512, 2048)  # run_variant's and run_sustained's block
 X1_BITS = (14, 20)  # exp_stream.main's check size and its largest timed size
@@ -643,8 +643,8 @@ def phase_build(recursion=True):
     # B4, X1 (one trip of its stage loop is one permutation per thread) and
     # each X2 instantiation, all on poseidon_fast.cuh's schedule
     sass = {"poseidon": sass_counts("poseidon", "poseidon_kernel", ROUND_TRIPS),
-            "poseidon_stream": sass_counts("poseidon_stream", "stream_kernel", ROUND_TRIPS,
-                                           outer=True),
+            **{f"poseidon_stream<{t}>": sass_counts("poseidon_stream", f"stream_kernelILi{t}E",
+                                                     ROUND_TRIPS, outer=True) for t in (256, 512)},
             **x2_sass()}
     # B1's radix passes at 4096 rows and T2 at the proves' two openings
     b1_t2 = {e[0]: e[1:] for name in ("ntt", "tac") for e in ptxas[name]
@@ -1163,7 +1163,7 @@ def phase_tools(device, kernel_rows):
     # B4's time split by X2's probes, and the variants beside B4
     t0 = time.perf_counter()
     split = exp_poseidon.decompose(device, bits=tuple(sorted(X1_DESIGN_CHAIN)),
-                                   block=X2_B4_BLOCK, chain=X1_DESIGN_CHAIN[max(X1_DESIGN_CHAIN)])
+                                   block=X2_B4_BLOCK, chain=X1_DESIGN_CHAIN[min(X1_DESIGN_CHAIN)])
     emit({"phase": "tools_decomposition", "seconds": time.perf_counter() - t0, **split})
     torch.cuda.empty_cache()
 

@@ -10,32 +10,28 @@
 // (poseidon_fast.cuh B4Schedule: any u64 in, canonical out, so nothing is
 // canonicalised on load) and of the card's copy engine.
 //
-// Design.  A persistent grid of `per_sm` CTAs of 256 threads per SM, each
-// walking the 2048-state tiles tile = cta, cta + grid, ...  A tile streams
-// as 8 steps of 256 states (one state per thread), each (12, 256) u64 =
-// 24 KiB in shared memory, through a ring of `ring` such stages.  Copies
-// are one-dimensional bulk copies (cp.async.bulk ...
-// mbarrier::complete_tx::bytes), one per row, completing on an mbarrier
-// armed with the stage's bytes (arrive.expect_tx); rows start at
-// multiples of 32 words, so they are 16-byte aligned.  No thread spends a
-// register or an instruction per word on a copy.  Two producers:
-//   cta   thread 0 fills each stage with 12 copies of 2 KiB; each warp,
-//         once it has read its columns, arrives on the stage's `empty`
-//         mbarrier, and at the start of step s thread 0 refills the slot
-//         of step s-1 with step s-1+ring once all 8 warps have arrived;
-//   warp  each warp owns a (12, 32) slice of every stage and its own
-//         mbarriers: its lane 0 refills its slice with 12 copies of 256 B
-//         as soon as the warp has read it.  No warp waits on another.
-// Output leaves by coalesced stores from registers (a warp writes 32
-// adjacent words of each row) or, with `bulk`, through a shared stage
-// (per CTA or per warp, as the producer) and 12 bulk stores
-// (cp.async.bulk.global.shared, one bulk group a step).  `stagger_us`
-// delays the start of each warp (warp mode) or CTA (cta mode) by its
-// share of that many microseconds, so that the SM's warps do not run the
-// permutation in phase (every warp of a persistent grid starts at once,
-// and warps in one phase all want the same pipe).  The permutation keeps
-// B4's register budget (__launch_bounds__(256, 2): at most 128
-// registers).
+// Design.  A persistent grid of `per_sm` CTAs of THREADS (256 or 512)
+// threads per SM, each walking the 2048-state tiles tile = cta, cta +
+// grid, ...  A tile streams as steps of THREADS states (one state per
+// thread), each a (12, THREADS) u64 stage in shared memory (24 or 48 KiB),
+// through a ring of `ring` stages.  Thread 0 fills a stage with 12
+// one-dimensional bulk copies, one row each (cp.async.bulk ...
+// mbarrier::complete_tx::bytes; rows start at multiples of 256 words, so
+// they are 16-byte aligned), completing on the stage's `full` mbarrier,
+// armed with the stage's bytes (arrive.expect_tx): no other thread spends
+// a register or an instruction on a copy.  Each warp, once it has read its
+// columns, arrives on the stage's `empty` mbarrier, and at the start of
+// step s thread 0 refills the slot of step s-1 with step s-1+ring once
+// every warp has arrived: the copy runs while the CTA permutes.  Output
+// leaves by coalesced stores from registers (a warp writes 32 adjacent
+// words of each row), the same after a CTA barrier at the start of each
+// step (`sync`: every warp starts the step's permutation together), or
+// through a shared stage and 12 bulk stores (cp.async.bulk.global.shared,
+// one bulk group a step; its two CTA barriers also start every warp
+// together).  The permutation keeps B4's register budget (at most 128
+// registers: two CTAs of 256 or one of 512 per SM).  One CTA of 512 with
+// the barrier each step is the default: it keeps all 16 warps of an SM at
+// the same place in the permutation's code.
 //
 // Bound on the H100: integer multiplies, as B4: 192 bytes move per
 // permutation against 1,122 GL multiplies, so overlapping the copies can
@@ -47,25 +43,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;                    // = states per stage
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 2048;                      // states per tile (exp_stream.py's BLK)
-constexpr int kStagesPerTile = kTile / kThreads;
-constexpr int kStageWords = poseidon::T * kThreads;
-constexpr int kStageBytes = kStageWords * 8;
+constexpr int kTile = 2048;  // states per tile (exp_stream.py's BLK)
 constexpr int kMaxRing = 4;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a CTA may hold
 using poseidon::T;
 
+enum Store { kRegisters = 0, kSync = 1, kBulk = 2 };
+
 struct Design {
-  int ring;        // stages in the ring, 2..kMaxRing
-  int per_sm;      // CTAs per SM asked for
-  int bulk;        // 1: bulk stores through shared memory
-  int warp_ring;   // 1: each warp fills its own slice (else thread 0 the stage)
-  int stagger_us;  // start delay spread over the SM's warps (or CTAs)
+  int ring;     // stages in the ring, 2..kMaxRing
+  int per_sm;   // CTAs per SM asked for
+  int store;    // Store
+  int threads;  // 256 or 512 a CTA
 };
 
-// the design poseidon_stream runs (PERF.md §6 has the others' times)
-constexpr Design kDefault = {2, 2, 1, 0, 0};
+// The design poseidon_stream runs: one CTA of 512 per SM, every warp
+// starting each step together.  On the H100 it times as B4 (1.00× at 2^22,
+// 0.98× at 2^25 states); warps that run the permutation's 160 KB of code
+// out of step were 1.2–1.6× B4 (PERF.md §6 has every design's time).
+constexpr Design kDefault = {3, 1, kSync, 512};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -120,184 +116,145 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
                : "memory");
 }
 
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// A stage of `width` states as (T, width) u64 at `base`, rows `ld` words
-// apart in device memory from column c0: 12 bulk copies completing on bar.
-__device__ __forceinline__ void fill(uint64_t* base, int width, const uint64_t* in,
-                                     long long ld, long long c0, uint64_t* bar) {
-  mbar_expect_tx(bar, T * width * 8);
-#pragma unroll
-  for (int i = 0; i < T; ++i) bulk_load(base + i * width, in + i * ld + c0, width * 8, bar);
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, 512 / THREADS)
 stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long batch,
-              Design d, int cta_slot_of) {
-  // ring stages, then the output stage; in warp mode warp w's slice of
-  // stage k is the (T, 32) block at k·kStageWords + w·32·T
+              int ring, int store) {
+  constexpr int kWarps = THREADS / 32;
+  constexpr int kStepsPerTile = kTile / THREADS;
+  constexpr int kRowBytes = THREADS * 8;
+  // ring stages of (T, THREADS) words, then the output stage
   extern __shared__ __align__(128) uint64_t smem[];
-  __shared__ __align__(8) uint64_t full[kMaxRing][kWarps], empty[kMaxRing];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool wr = d.warp_ring != 0;
-  const int ring = d.ring;
+  __shared__ __align__(8) uint64_t full[kMaxRing], empty[kMaxRing];
+  const int tid = threadIdx.x;
   const long long n_tiles = batch / kTile;
   const long long my_tiles =
       blockIdx.x < n_tiles ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
-  const long long n_steps = my_tiles * kStagesPerTile;
+  const long long n_steps = my_tiles * kStepsPerTile;
   // first column of this CTA's step st
   auto col0 = [&](long long st) {
-    return (blockIdx.x + (st / kStagesPerTile) * gridDim.x) * kTile +
-           (st % kStagesPerTile) * kThreads;
+    return (blockIdx.x + (st / kStepsPerTile) * gridDim.x) * kTile +
+           (st % kStepsPerTile) * THREADS;
   };
-  // this thread's word i of a stage (or of the output stage) at `base`
-  auto at = [&](uint64_t* base, int i) -> uint64_t& {
-    return wr ? base[warp * 32 * T + i * 32 + lane] : base[i * kThreads + tid];
-  };
-  auto issue = [&](long long st, int slot) {  // thread 0, or lane 0 of each warp
-    uint64_t* base = smem + (long long)slot * kStageWords;
-    if (wr) fill(base + warp * 32 * T, 32, in, batch, col0(st) + warp * 32, &full[slot][warp]);
-    else fill(base, kThreads, in, batch, col0(st), &full[slot][0]);
+  auto stage = [&](int slot) { return smem + (long long)slot * T * THREADS; };
+  auto issue = [&](long long st, int slot) {  // thread 0
+    mbar_expect_tx(&full[slot], T * kRowBytes);
+    const long long c0 = col0(st);
+#pragma unroll
+    for (int i = 0; i < T; ++i)
+      bulk_load(stage(slot) + i * THREADS, in + i * batch + c0, kRowBytes, &full[slot]);
   };
 
   if (tid == 0) {
     for (int r = 0; r < ring; ++r) {
-      for (int w = 0; w < kWarps; ++w) mbar_init(&full[r][w], 1);
+      mbar_init(&full[r], 1);
       mbar_init(&empty[r], kWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (d.stagger_us > 0) {
-    // this warp's (or CTA's) place among the SM's, spread over stagger_us
-    const int per_sm = gridDim.x / cta_slot_of > 0 ? (int)(gridDim.x / cta_slot_of) : 1;
-    const int cta_slot = (int)(blockIdx.x / cta_slot_of);
-    const long long place = wr ? (long long)cta_slot * kWarps + warp : cta_slot;
-    const long long places = wr ? (long long)per_sm * kWarps : per_sm;
-    const unsigned long long until = globaltimer() + 1000ull * d.stagger_us * place / places;
-    while (globaltimer() < until) __nanosleep(1000);
-  }
-  if (wr ? lane == 0 : tid == 0)
+  if (tid == 0)
     for (int r = 0; r < ring && r < n_steps; ++r) issue(r, r);
-  uint64_t* ostage = smem + (long long)ring * kStageWords;
+  uint64_t* ostage = stage(ring);
 
 #pragma unroll 1
   for (long long st = 0; st < n_steps; ++st) {
     const int slot = (int)(st % ring);
-    const uint32_t parity = (uint32_t)((st / ring) & 1);
-    if (!wr && tid == 0 && st > 0 && st - 1 + ring < n_steps) {
+    if (tid == 0 && st > 0 && st - 1 + ring < n_steps) {
       const int prev = (int)((st - 1) % ring);
       mbar_wait(&empty[prev], (uint32_t)(((st - 1) / ring) & 1));
       issue(st - 1 + ring, prev);
     }
-    mbar_wait(&full[slot][wr ? warp : 0], parity);
-    uint64_t* stage = smem + (long long)slot * kStageWords;
+    if (store == kSync) __syncthreads();
+    mbar_wait(&full[slot], (uint32_t)((st / ring) & 1));
     uint64_t s[1][T];
 #pragma unroll
-    for (int i = 0; i < T; ++i) s[0][i] = at(stage, i);
+    for (int i = 0; i < T; ++i) s[0][i] = stage(slot)[i * THREADS + tid];
     __syncwarp();
-    if (lane == 0) {
-      if (!wr) {
-        mbar_arrive(&empty[slot]);
-      } else if (st + ring < n_steps) {
-        // the warp's reads of the slice before the copy engine's writes
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        issue(st + ring, slot);
-      }
-    }
+    if (tid % 32 == 0) mbar_arrive(&empty[slot]);
     poseidon_fast::permute<poseidon_fast::B4Schedule>(s);
     const long long c0 = col0(st);
-    if (!d.bulk) {
+    if (store != kBulk) {
 #pragma unroll
       for (int i = 0; i < T; ++i) out[i * batch + c0 + tid] = s[0][i];
       continue;
     }
     // the last step's bulk stores have read the output stage
-    if (wr ? lane == 0 : tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-    if (wr) __syncwarp();
-    else __syncthreads();
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < T; ++i) at(ostage, i) = s[0][i];
+    for (int i = 0; i < T; ++i) ostage[i * THREADS + tid] = s[0][i];
     // make the writes visible to the copy engine (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    if (wr) __syncwarp();
-    else __syncthreads();
-    if (wr ? lane == 0 : tid == 0) {
-      if (wr) {
+    __syncthreads();
+    if (tid == 0) {
 #pragma unroll
-        for (int i = 0; i < T; ++i)
-          bulk_store(out + i * batch + c0 + warp * 32, ostage + warp * 32 * T + i * 32, 32 * 8);
-      } else {
-#pragma unroll
-        for (int i = 0; i < T; ++i)
-          bulk_store(out + i * batch + c0, ostage + i * kThreads, kThreads * 8);
-      }
+      for (int i = 0; i < T; ++i)
+        bulk_store(out + i * batch + c0, ostage + i * THREADS, kRowBytes);
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     }
   }
-  if (d.bulk && (wr ? lane == 0 : tid == 0))
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if (store == kBulk && tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-// The persistent grid of a design: per_sm CTAs on each SM, or as many as
-// fit; never more CTAs than tiles.  *sms gets the card's SM count.
-cudaError_t grid_of(long long n_tiles, const Design& d, int* grid, int* smem, int* sms) {
-  int device = 0, fit = 0;
-  *smem = (d.ring + d.bulk) * kStageBytes;
+// Launch a design: per_sm CTAs on each SM, or as many as fit, never more
+// CTAs than tiles; *grid gets the CTAs launched.
+template <int THREADS>
+int launch(const uint64_t* in, uint64_t* out, long long batch, const Design& d, int* grid,
+           cudaStream_t stream) {
+  const int smem = (d.ring + (d.store == kBulk)) * T * THREADS * 8;
+  if (smem > kMaxSmem) return -1;
+  int device = 0, sms = 0, fit = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (kMaxRing + 1) * kStageBytes);
+    err = cudaFuncSetAttribute(stream_kernel<THREADS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(stream_kernel<THREADS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, stream_kernel, kThreads, *smem);
-  if (err != cudaSuccess) return err;
-  long long g = (long long)*sms * (fit < d.per_sm ? (fit > 0 ? fit : 1) : d.per_sm);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, stream_kernel<THREADS>, THREADS,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = batch / kTile;
+  const long long g = (long long)sms * (fit < d.per_sm ? (fit > 0 ? fit : 1) : d.per_sm);
   *grid = (int)(g > n_tiles ? n_tiles : g);
-  return cudaSuccess;
+  stream_kernel<THREADS><<<(unsigned)*grid, THREADS, smem, stream>>>(in, out, batch, d.ring,
+                                                                     d.store);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // in/out: (12, batch) u64 on the card, batch a multiple of 2048, both
-// 16-byte aligned.  design: {ring 2..4, CTAs per SM asked for, bulk stores
-// 0/1, warp producers 0/1, stagger in microseconds}.  *grid gets the CTAs
-// launched.  Returns the CUDA error of the launch, or -1 for a design out
-// of range.
+// 16-byte aligned.  design: {ring 2..4, CTAs per SM asked for, stores (0
+// registers, 1 registers after a CTA barrier a step, 2 bulk), threads 256
+// or 512 a CTA}.  *grid gets the CTAs launched.  Returns the CUDA error of
+// the launch, or -1 for a design out of range.
 extern "C" int poseidon_stream_design(const void* in, void* out, long long batch,
                                       const int* design, int* grid, void* stream) {
-  const Design d = {design[0], design[1], design[2], design[3], design[4]};
-  if (d.ring < 2 || d.ring > kMaxRing || d.per_sm < 1 || (d.bulk != 0 && d.bulk != 1) ||
-      (d.warp_ring != 0 && d.warp_ring != 1) || d.stagger_us < 0)
-    return -1;
+  const Design d = {design[0], design[1], design[2], design[3]};
   *grid = 0;
+  if (d.ring < 2 || d.ring > kMaxRing || d.per_sm < 1 || d.store < kRegisters ||
+      d.store > kBulk || (d.threads != 256 && d.threads != 512))
+    return -1;
   if (batch <= 0) return 0;
-  int smem = 0, sms = 0;
-  cudaError_t err = grid_of(batch / kTile, d, grid, &smem, &sms);
-  if (err != cudaSuccess) return (int)err;
-  stream_kernel<<<(unsigned)*grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, batch, d, sms);
-  return (int)cudaGetLastError();
+  const auto f = d.threads == 256 ? launch<256> : launch<512>;
+  return f((const uint64_t*)in, (uint64_t*)out, batch, d, grid, (cudaStream_t)stream);
 }
 
 // The design poseidon_stream runs, as poseidon_stream_design takes it.
 extern "C" void poseidon_stream_default(int* design) {
   design[0] = kDefault.ring;
   design[1] = kDefault.per_sm;
-  design[2] = kDefault.bulk;
-  design[3] = kDefault.warp_ring;
-  design[4] = kDefault.stagger_us;
+  design[2] = kDefault.store;
+  design[3] = kDefault.threads;
 }
 
 extern "C" int poseidon_stream(const void* in, void* out, long long batch, void* stream) {
-  int design[5], grid = 0;
+  int design[4], grid = 0;
   poseidon_stream_default(design);
   return poseidon_stream_design(in, out, batch, design, &grid, stream);
 }
