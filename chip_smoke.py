@@ -39,8 +39,9 @@ Phases, each printing one JSON line:
                    their plain versions; every variant that computes
                    Poseidon, and X1, equal to B4 at the prove's leaf
                    batches of 2^22 and 2^25 states and timed beside it
-                   (vs_b4); every design of X1 (ring depth, CTAs per SM,
-                   stores) equal to B4 and timed beside it at 2^22 and
+                   (vs_b4); X2's probes splitting B4's time
+                   (exp_poseidon.decompose); X1's designs (ring depth,
+                   CTA shape) equal to B4 and timed beside it at 2^22 and
                    2^25 (exp_stream.compare_designs); then the two tools'
                    entry points on the card, with X1/X2 launches counted;
   4. small       — prove on the card and on the CPU, and require the two
@@ -335,10 +336,9 @@ X2_B4_BLOCK = 256
 CORNER_BITS = 14  # the corner-state rows' batch
 X1_DESIGN_CHAIN = {22: (3, 2), 25: (2, 2)}  # decompose's, compare_designs' chains
 # the X1 designs the tools phase times beside B4 (exp_stream.Design: ring,
-# CTAs per SM, stores, threads); `python -m
-# pil2_stark_tpu_torch.tools.exp_stream designs` times all of them
-X1_DESIGNS = ((3, 1, "sync", 512), (2, 1, "sync", 512), (3, 1, "registers", 512),
-              (3, 2, "sync", 256), (3, 2, "bulk", 256), (3, 2, "registers", 256))
+# CTAs per SM, threads); `python -m pil2_stark_tpu_torch.tools.exp_stream
+# designs` times all of them
+X1_DESIGNS = ((3, 1, 512), (2, 1, 512), (4, 1, 512), (3, 2, 256), (3, 1, 256))
 TOOL_BATCH = 1 << 16  # run_variant's and run_sustained's batch
 TOOL_BLOCKS = (512, 2048)  # run_variant's and run_sustained's block
 X1_BITS = (14, 20)  # exp_stream.main's check size and its largest timed size

@@ -22,16 +22,14 @@
 // a register or an instruction on a copy.  Each warp, once it has read its
 // columns, arrives on the stage's `empty` mbarrier, and at the start of
 // step s thread 0 refills the slot of step s-1 with step s-1+ring once
-// every warp has arrived: the copy runs while the CTA permutes.  Output
-// leaves by coalesced stores from registers (a warp writes 32 adjacent
-// words of each row), the same after a CTA barrier at the start of each
-// step (`sync`: every warp starts the step's permutation together), or
-// through a shared stage and 12 bulk stores (cp.async.bulk.global.shared,
-// one bulk group a step; its two CTA barriers also start every warp
-// together).  The permutation keeps B4's register budget (at most 128
-// registers: two CTAs of 256 or one of 512 per SM).  One CTA of 512 with
-// the barrier each step is the default: it keeps all 16 warps of an SM at
-// the same place in the permutation's code.
+// every warp has arrived: the copy runs while the CTA permutes.  A CTA
+// barrier at the start of each step starts every warp's permutation
+// together: warps that drift apart in the permutation's 160 KB of code ran
+// 1.2–1.6× B4's time on the H100, and the barrier brings a CTA of 512 to
+// B4's.  Output leaves by coalesced stores from registers (a warp writes
+// 32 adjacent words of each row); bulk stores through a shared stage were
+// 0.6–1.0 % slower (PERF.md §6).  The permutation keeps B4's register
+// budget (at most 128 registers: two CTAs of 256 or one of 512 per SM).
 //
 // Bound on the H100: integer multiplies, as B4: 192 bytes move per
 // permutation against 1,122 GL multiplies, so overlapping the copies can
@@ -45,23 +43,18 @@ namespace {
 
 constexpr int kTile = 2048;  // states per tile (exp_stream.py's BLK)
 constexpr int kMaxRing = 4;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a CTA may hold
 using poseidon::T;
-
-enum Store { kRegisters = 0, kSync = 1, kBulk = 2 };
 
 struct Design {
   int ring;     // stages in the ring, 2..kMaxRing
   int per_sm;   // CTAs per SM asked for
-  int store;    // Store
   int threads;  // 256 or 512 a CTA
 };
 
-// The design poseidon_stream runs: one CTA of 512 per SM, every warp
-// starting each step together.  On the H100 it times as B4 (1.00× at 2^22,
-// 0.98× at 2^25 states); warps that run the permutation's 160 KB of code
-// out of step were 1.2–1.6× B4 (PERF.md §6 has every design's time).
-constexpr Design kDefault = {3, 1, kSync, 512};
+// The design poseidon_stream runs: one CTA of 512 per SM.  On the H100 it
+// times as B4 (1.00× at 2^22, 0.98× at 2^25 states; PERF.md §6 has every
+// design's time).
+constexpr Design kDefault = {3, 1, 512};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -110,20 +103,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-}
-
 template <int THREADS>
 __global__ void __launch_bounds__(THREADS, 512 / THREADS)
 stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long batch,
-              int ring, int store) {
+              int ring) {
   constexpr int kWarps = THREADS / 32;
   constexpr int kStepsPerTile = kTile / THREADS;
   constexpr int kRowBytes = THREADS * 8;
-  // ring stages of (T, THREADS) words, then the output stage
+  // ring stages of (T, THREADS) words
   extern __shared__ __align__(128) uint64_t smem[];
   __shared__ __align__(8) uint64_t full[kMaxRing], empty[kMaxRing];
   const int tid = threadIdx.x;
@@ -155,7 +142,6 @@ stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long 
   __syncthreads();
   if (tid == 0)
     for (int r = 0; r < ring && r < n_steps; ++r) issue(r, r);
-  uint64_t* ostage = stage(ring);
 
 #pragma unroll 1
   for (long long st = 0; st < n_steps; ++st) {
@@ -165,7 +151,7 @@ stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long 
       mbar_wait(&empty[prev], (uint32_t)(((st - 1) / ring) & 1));
       issue(st - 1 + ring, prev);
     }
-    if (store == kSync) __syncthreads();
+    __syncthreads();  // every warp starts the step together
     mbar_wait(&full[slot], (uint32_t)((st / ring) & 1));
     uint64_t s[1][T];
 #pragma unroll
@@ -173,28 +159,10 @@ stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long 
     __syncwarp();
     if (tid % 32 == 0) mbar_arrive(&empty[slot]);
     poseidon_fast::permute<poseidon_fast::B4Schedule>(s);
-    const long long c0 = col0(st);
-    if (store != kBulk) {
+    const long long c = col0(st) + tid;
 #pragma unroll
-      for (int i = 0; i < T; ++i) out[i * batch + c0 + tid] = s[0][i];
-      continue;
-    }
-    // the last step's bulk stores have read the output stage
-    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < T; ++i) ostage[i * THREADS + tid] = s[0][i];
-    // make the writes visible to the copy engine (the async proxy)
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    if (tid == 0) {
-#pragma unroll
-      for (int i = 0; i < T; ++i)
-        bulk_store(out + i * batch + c0, ostage + i * THREADS, kRowBytes);
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    }
+    for (int i = 0; i < T; ++i) out[i * batch + c] = s[0][i];
   }
-  if (store == kBulk && tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // Launch a design: per_sm CTAs on each SM, or as many as fit, never more
@@ -202,8 +170,7 @@ stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long 
 template <int THREADS>
 int launch(const uint64_t* in, uint64_t* out, long long batch, const Design& d, int* grid,
            cudaStream_t stream) {
-  const int smem = (d.ring + (d.store == kBulk)) * T * THREADS * 8;
-  if (smem > kMaxSmem) return -1;
+  const int smem = d.ring * T * THREADS * 8;  // at most 192 KiB
   int device = 0, sms = 0, fit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -221,24 +188,21 @@ int launch(const uint64_t* in, uint64_t* out, long long batch, const Design& d, 
   const long long n_tiles = batch / kTile;
   const long long g = (long long)sms * (fit < d.per_sm ? (fit > 0 ? fit : 1) : d.per_sm);
   *grid = (int)(g > n_tiles ? n_tiles : g);
-  stream_kernel<THREADS><<<(unsigned)*grid, THREADS, smem, stream>>>(in, out, batch, d.ring,
-                                                                     d.store);
+  stream_kernel<THREADS><<<(unsigned)*grid, THREADS, smem, stream>>>(in, out, batch, d.ring);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // in/out: (12, batch) u64 on the card, batch a multiple of 2048, both
-// 16-byte aligned.  design: {ring 2..4, CTAs per SM asked for, stores (0
-// registers, 1 registers after a CTA barrier a step, 2 bulk), threads 256
-// or 512 a CTA}.  *grid gets the CTAs launched.  Returns the CUDA error of
-// the launch, or -1 for a design out of range.
+// 16-byte aligned.  design: {ring 2..4, CTAs per SM asked for, threads
+// 256 or 512 a CTA}.  *grid gets the CTAs launched.  Returns the CUDA
+// error of the launch, or -1 for a design out of range.
 extern "C" int poseidon_stream_design(const void* in, void* out, long long batch,
                                       const int* design, int* grid, void* stream) {
-  const Design d = {design[0], design[1], design[2], design[3]};
+  const Design d = {design[0], design[1], design[2]};
   *grid = 0;
-  if (d.ring < 2 || d.ring > kMaxRing || d.per_sm < 1 || d.store < kRegisters ||
-      d.store > kBulk || (d.threads != 256 && d.threads != 512))
+  if (d.ring < 2 || d.ring > kMaxRing || d.per_sm < 1 || (d.threads != 256 && d.threads != 512))
     return -1;
   if (batch <= 0) return 0;
   const auto f = d.threads == 256 ? launch<256> : launch<512>;
@@ -249,12 +213,11 @@ extern "C" int poseidon_stream_design(const void* in, void* out, long long batch
 extern "C" void poseidon_stream_default(int* design) {
   design[0] = kDefault.ring;
   design[1] = kDefault.per_sm;
-  design[2] = kDefault.store;
-  design[3] = kDefault.threads;
+  design[2] = kDefault.threads;
 }
 
 extern "C" int poseidon_stream(const void* in, void* out, long long batch, void* stream) {
-  int design[4], grid = 0;
+  int design[3], grid = 0;
   poseidon_stream_default(design);
   return poseidon_stream_design(in, out, batch, design, &grid, stream);
 }

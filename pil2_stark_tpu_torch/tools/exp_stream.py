@@ -14,8 +14,7 @@ int64 tensors.  On a CUDA tensor it launches X1 (building it at first use)
 and counts ``permute_stream.launches``; on a CPU tensor it runs the plain
 version; any other device raises.  ``permute_stream(state, design=)``
 runs another design of the kernel: a ``Design`` of ring stages, CTAs per
-SM, the way out (stores from registers, the same after a CTA barrier a
-step, or bulk stores through shared memory) and threads per CTA.
+SM and threads per CTA.
 
     python -m pil2_stark_tpu_torch.tools.exp_stream            # check and time
     python -m pil2_stark_tpu_torch.tools.exp_stream designs    # every design beside B4
@@ -42,25 +41,18 @@ P = gl.P_INT
 T = cp.T
 BLK = 2048  # states per tile (pallas_poseidon._BLOCK)
 MAX_RING = 4  # csrc/poseidon_stream.cu kMaxRing
-STORES = ("registers", "sync", "bulk")  # csrc/poseidon_stream.cu Store
-MAX_SMEM = 232448  # bytes of shared memory a CTA may hold
 
 
 class Design(NamedTuple):
     ring: int  # shared stages in the ring, 2..MAX_RING
     per_sm: int  # CTAs per SM asked for (fewer if they do not fit)
-    store: str  # registers; registers after a CTA barrier a step; bulk stores
-    threads: int = 256  # a CTA's threads, 256 or 512 (states a step)
-
-    def smem(self) -> int:
-        """Bytes of shared memory a CTA of this design holds."""
-        return (self.ring + (self.store == "bulk")) * T * self.threads * 8
+    threads: int  # a CTA's threads, 256 or 512 (states a step)
 
 
-# every design compare_designs times by default: each ring depth, two CTAs
-# of 256 threads, one of 256 or one of 512 per SM, each way out
-DESIGNS = tuple(d for d in (Design(r, k, st, th) for r, (th, k), st in itertools.product(
-    range(2, MAX_RING + 1), ((256, 2), (256, 1), (512, 1)), STORES)) if d.smem() <= MAX_SMEM)
+# every design compare_designs times by default: each ring depth with two
+# CTAs of 256 threads, one of 256 or one of 512 per SM
+DESIGNS = tuple(Design(r, k, th) for r, (th, k) in itertools.product(
+    range(2, MAX_RING + 1), ((256, 2), (256, 1), (512, 1))))
 
 
 def _lib():
@@ -80,9 +72,9 @@ def _lib():
 
 def default_design() -> Design:
     """The design the kernel runs when none is given (built on first use)."""
-    v = (ctypes.c_int * 4)()
+    v = (ctypes.c_int * 3)()
     _lib().poseidon_stream_default(v)
-    return Design(v[0], v[1], STORES[v[2]], v[3])
+    return Design(*v)
 
 
 def permute_stream(state: torch.Tensor, design: Design | None = None) -> torch.Tensor:
@@ -93,8 +85,7 @@ def permute_stream(state: torch.Tensor, design: Design | None = None) -> torch.T
         raise ValueError(f"poseidon stream: want (12, a multiple of {BLK}), "
                          f"got {tuple(state.shape)}")
     if design is not None and not (2 <= design.ring <= MAX_RING and design.per_sm >= 1
-                                   and design.store in STORES and design.threads in (256, 512)
-                                   and design.smem() <= MAX_SMEM):
+                                   and design.threads in (256, 512)):
         raise ValueError(f"poseidon stream: design out of range: {design}")
     if state.device.type == "cpu":
         return cp.permute_plain(state)
@@ -114,9 +105,7 @@ def permute_stream(state: torch.Tensor, design: Design | None = None) -> torch.T
         else:
             g = ctypes.c_int(0)
             rc = _lib().poseidon_stream_design(state.data_ptr(), out.data_ptr(), state.shape[1],
-                                               (ctypes.c_int * 4)(
-                                                   design.ring, design.per_sm,
-                                                   STORES.index(design.store), design.threads),
+                                               (ctypes.c_int * 3)(*design),
                                                ctypes.byref(g), stream)
             grid = g.value
     if rc != 0:

@@ -80,18 +80,15 @@ def test_sqr_wide_and_add_c_at_extremes():
 
 
 def test_stream_designs_on_cpu():
-    """X1's designs: ring depths × CTA shapes × stores, those whose stages
-    fit a CTA's shared memory; each out of range refused; on the CPU every
-    design runs B4's plain version, and compare_designs finds each equal
-    to B4."""
+    """X1's designs: ring depths × CTA shapes, each out of range refused;
+    on the CPU every design runs B4's plain version, and compare_designs
+    finds each equal to B4."""
     designs = exp_stream.DESIGNS
-    assert len(set(designs)) == len(designs) == 3 * 3 * 3 - 1  # ring 4 × 512 × bulk: 240 KiB
-    assert {d.ring for d in designs} == {2, 3, 4} and {d.per_sm for d in designs} == {1, 2}
-    assert {d.store for d in designs} == set(exp_stream.STORES)
+    assert len(set(designs)) == len(designs) == 3 * 3
+    assert {(d.threads, d.per_sm) for d in designs} == {(256, 2), (256, 1), (512, 1)}
     x = torch_gl.from_u64(_states(exp_stream.BLK, 9).T.copy())
-    for bad in (exp_stream.Design(1, 2, "bulk"), exp_stream.Design(5, 2, "bulk"),
-                exp_stream.Design(2, 0, "bulk"), exp_stream.Design(2, 2, "dma"),
-                exp_stream.Design(2, 1, "bulk", 1024), exp_stream.Design(4, 1, "bulk", 512)):
+    for bad in (exp_stream.Design(1, 2, 256), exp_stream.Design(5, 2, 256),
+                exp_stream.Design(2, 0, 256), exp_stream.Design(2, 1, 1024)):
         with pytest.raises(ValueError):
             exp_stream.permute_stream(x, bad)
     assert torch.equal(exp_stream.permute_stream(x, exp_stream.DESIGNS[-1]),
