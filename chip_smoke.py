@@ -329,9 +329,8 @@ XLA_FUSION = "counterpart of an XLA fusion, not a pallas_call"
 X2_VARIANTS = ("packed", "packed-nosq", "packed-lazy", "packed-nosq-lazy", "packed-dual",
                "packed-lazy-dual", "packed-p4x", "packed-psl", "nomxu", "packed-nops",
                "packed-nofs")
-X2_CONTROL = "packed-nosq-lazy"  # B4's schedule on one state a thread
 # the block of X2's rows beside B4: one state a thread, B4's geometry; the
-# control also at the tool's 2048 (eight states a thread, warps in phase)
+# control also at the tool's 2048 (eight states a thread: warps drift apart)
 X2_B4_BLOCK = 256
 CORNER_BITS = 14  # the corner-state rows' batch
 X1_DESIGN_CHAIN = {22: (3, 2), 25: (2, 2)}  # decompose's, compare_designs' chains
@@ -1147,7 +1146,8 @@ def phase_tools(device, kernel_rows):
         for variant in X2_VARIANTS:
             if exp_poseidon.parse(variant).probe is not None:
                 continue
-            for block in (X2_B4_BLOCK, 2048) if variant == X2_CONTROL else (X2_B4_BLOCK,):
+            control = variant == exp_poseidon.CONTROL
+            for block in (X2_B4_BLOCK, 2048) if control else (X2_B4_BLOCK,):
                 fn = exp_poseidon.build(variant, n // block, block)
                 r = row(x2, exact_err(fn(x), want), lambda: fn(x), None, variant_imads(variant),
                         n, {"variant": variant, "batch": n, "block": block}, **extra)

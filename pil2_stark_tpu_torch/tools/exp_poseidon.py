@@ -253,10 +253,10 @@ def run_sustained(variant: str, block: int = 2048, batch: int = 1 << 16, device=
     return res
 
 
-def decompose(device=None, bits=(22, 25), block: int = 2048, chain=(5, 3),
+def decompose(device=None, bits=(22, 25), block: int = 256, chain=(5, 3),
               seed: int = 0) -> dict:
     """B4's time split by the probes.  At each 2^bits random states, in one
-    run: B4 (before and after the rest), the control, ``packed-lazy``,
+    run, at one state a thread by default (block 256, B4's geometry): B4 (before and after the rest), the control, ``packed-lazy``,
     each base of DECOMPOSITION and each of its probes, as chains of
     chain[0] calls, the best of chain[1].  A base minus its probe is the
     time of the work the probe drops, given in ms and as a share of B4's
