@@ -39,10 +39,7 @@ Phases, each printing one JSON line:
                    their plain versions; every variant that computes
                    Poseidon, and X1, equal to B4 at the prove's leaf
                    batches of 2^22 and 2^25 states and timed beside it
-                   (vs_b4); X2's probes splitting B4's time
-                   (exp_poseidon.decompose); X1's designs (ring depth,
-                   CTA shape) equal to B4 and timed beside it at 2^22 and
-                   2^25 (exp_stream.compare_designs); then the two tools'
+                   (vs_b4); then the two tools'
                    entry points on the card, with X1/X2 launches counted;
   4. small       — prove on the card and on the CPU, and require the two
                    proofs to be identical: the all-gadgets machine at 2^8,
@@ -215,8 +212,7 @@ Then the card's name and power limit, the kernels line, and as the last line
 card; imports nothing of JAX.  `python3 chip_smoke.py --only mesh` runs the
 build, prove_vm and mesh phases alone (for a machine with four cards);
 `--only recursion` the build, the small and cli recursion chains and the
-recursion phase; `--only snark` the build and the snark phase; `--only
-tools` the build, B4 at 2^22 and 2^25 states and the tools phase.  Every process the script starts is ended before it
+recursion phase; `--only snark` the build and the snark phase.  Every process the script starts is ended before it
 exits.
 """
 from __future__ import annotations
@@ -333,11 +329,6 @@ X2_VARIANTS = ("packed", "packed-nosq", "packed-lazy", "packed-nosq-lazy", "pack
 # control also at the tool's 2048 (eight states a thread: warps drift apart)
 X2_B4_BLOCK = 256
 CORNER_BITS = 14  # the corner-state rows' batch
-X1_DESIGN_CHAIN = {22: (3, 2), 25: (2, 2)}  # decompose's, compare_designs' chains
-# the X1 designs the tools phase times beside B4 (exp_stream.Design: ring,
-# CTAs per SM, threads); `python -m pil2_stark_tpu_torch.tools.exp_stream
-# designs` times all of them
-X1_DESIGNS = ((3, 1, 512), (2, 1, 512), (4, 1, 512), (3, 2, 256), (3, 1, 256))
 TOOL_BATCH = 1 << 16  # run_variant's and run_sustained's batch
 TOOL_BLOCKS = (512, 2048)  # run_variant's and run_sustained's block
 X1_BITS = (14, 20)  # exp_stream.main's check size and its largest timed size
@@ -642,8 +633,8 @@ def phase_build(recursion=True):
     # B4, X1 (one trip of its stage loop is one permutation per thread) and
     # each X2 instantiation, all on poseidon_fast.cuh's schedule
     sass = {"poseidon": sass_counts("poseidon", "poseidon_kernel", ROUND_TRIPS),
-            **{f"poseidon_stream<{t}>": sass_counts("poseidon_stream", f"stream_kernelILi{t}E",
-                                                     ROUND_TRIPS, outer=True) for t in (256, 512)},
+            "poseidon_stream": sass_counts("poseidon_stream", "stream_kernel", ROUND_TRIPS,
+                                           outer=True),
             **x2_sass()}
     # B1's radix passes at 4096 rows and T2 at the proves' two openings
     b1_t2 = {e[0]: e[1:] for name in ("ntt", "tac") for e in ptxas[name]
@@ -1076,8 +1067,8 @@ def tiled_states(words, bits, device, seed):
 
 def phase_tools(device, kernel_rows):
     """X2 and X1 against their plain versions at the tools' shapes and at
-    corner states, and against B4 at the prove's leaf batches; X1's designs
-    against B4; then the tools' entry points, whose launches are counted."""
+    corner states, and against B4 at the prove's leaf batches; then the
+    tools' entry points, whose launches are counted."""
     import torch
 
     from pil2_stark_tpu_torch.hash import cuda_poseidon
@@ -1159,27 +1150,6 @@ def phase_tools(device, kernel_rows):
     bad = [(r["name"], r["shape"]) for r in rows if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"tool kernels disagree with their plain versions or B4: {bad}")
-
-    # B4's time split by X2's probes, and the variants beside B4
-    t0 = time.perf_counter()
-    split = exp_poseidon.decompose(device, bits=tuple(sorted(X1_DESIGN_CHAIN)),
-                                   block=X2_B4_BLOCK, chain=X1_DESIGN_CHAIN[min(X1_DESIGN_CHAIN)])
-    emit({"phase": "tools_decomposition", "seconds": time.perf_counter() - t0, **split})
-    torch.cuda.empty_cache()
-
-    # X1's designs beside B4, each one's output equal to B4's
-    t0 = time.perf_counter()
-    default = exp_stream.default_design()
-    chosen = [default] + [d for d in map(exp_stream.Design._make, X1_DESIGNS) if d != default]
-    designs = {b: exp_stream.compare_designs(device, bits=(b,), designs=chosen,
-                                             chain=X1_DESIGN_CHAIN[b])
-               for b in sorted(X1_DESIGN_CHAIN)}
-    emit({"phase": "tools_x1_designs", "seconds": time.perf_counter() - t0,
-          "default": default._asdict(),
-          "sizes": {b: d["sizes"][b] for b, d in designs.items()}})
-    if not all(d["ok"] for d in designs.values()):
-        raise AssertionError("an X1 design disagrees with B4")
-    torch.cuda.empty_cache()
 
     # the tools' entry points, counted
     exp_poseidon.permute_variant.launches = 0
@@ -3228,8 +3198,8 @@ def main(argv):
     if argv[:1] == ["--mesh-worker"]:
         return mesh_worker(*argv[1:])
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("mesh", "recursion", "snark", "tools"):
-        print("usage: chip_smoke.py [--only mesh|recursion|snark|tools]", file=sys.stderr)
+    if argv and only not in ("mesh", "recursion", "snark"):
+        print("usage: chip_smoke.py [--only mesh|recursion|snark]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3270,19 +3240,12 @@ def main(argv):
 
 
 def run_phases(device, counters, only):
-    """Every phase in order (or those of `--only mesh|recursion|snark|tools`):
+    """Every phase in order (or those of `--only mesh|recursion|snark`):
     (kernel rows, tool rows, {path: launches})."""
     import torch
 
-    phase_build(recursion=only not in ("mesh", "snark", "tools"))
+    phase_build(recursion=only not in ("mesh", "snark"))
     rows, tool_rows, launches = [], [], {}
-    if only == "tools":  # B4's rows are the tools' yardstick, not listed
-        b4 = [_poseidon_row(device, 1 << (N_BITS + 2), f"all_{N_BITS}"),
-              _poseidon_row(device, 1 << LARGE_BITS, LARGE_SETUP)]
-        for r in b4:
-            emit({"phase": "kernels", **r})
-        tool_rows, launches = phase_tools(device, b4)
-        return rows, tool_rows, launches
     if only == "snark":
         rows, snark = start_snark(device, counters)
         launches["snark"] = phase_snark(snark)

@@ -10,14 +10,13 @@
 // (poseidon_fast.cuh B4Schedule: any u64 in, canonical out, so nothing is
 // canonicalised on load) and of the card's copy engine.
 //
-// Design.  A persistent grid of `per_sm` CTAs of THREADS (256 or 512)
-// threads per SM, each walking the 2048-state tiles tile = cta, cta +
-// grid, ...  A tile streams as steps of THREADS states (one state per
-// thread), each a (12, THREADS) u64 stage in shared memory (24 or 48 KiB),
-// through a ring of `ring` stages.  Thread 0 fills a stage with 12
-// one-dimensional bulk copies, one row each (cp.async.bulk ...
-// mbarrier::complete_tx::bytes; rows start at multiples of 256 words, so
-// they are 16-byte aligned), completing on the stage's `full` mbarrier,
+// Design.  A persistent grid of one CTA of 512 threads per SM, each
+// walking the 2048-state tiles tile = cta, cta + grid, ...  A tile streams
+// as steps of 512 states (one state a thread), each a (12, 512) u64 stage
+// in shared memory (48 KiB), through a ring of 3 stages.  Thread 0 fills a
+// stage with 12 one-dimensional bulk copies, one row each (cp.async.bulk
+// ... mbarrier::complete_tx::bytes; rows start at multiples of 512 words,
+// so they are 16-byte aligned), completing on the stage's `full` mbarrier,
 // armed with the stage's bytes (arrive.expect_tx): no other thread spends
 // a register or an instruction on a copy.  Each warp, once it has read its
 // columns, arrives on the stage's `empty` mbarrier, and at the start of
@@ -27,9 +26,10 @@
 // together: warps that drift apart in the permutation's 160 KB of code ran
 // 1.2–1.6× B4's time on the H100, and the barrier brings a CTA of 512 to
 // B4's.  Output leaves by coalesced stores from registers (a warp writes
-// 32 adjacent words of each row); bulk stores through a shared stage were
-// 0.6–1.0 % slower (PERF.md §6).  The permutation keeps B4's register
-// budget (at most 128 registers: two CTAs of 256 or one of 512 per SM).
+// 32 adjacent words of each row).  The permutation keeps B4's register
+// budget (at most 128 registers: one CTA of 512 per SM).  Rings of 2 and
+// 4 stages, two CTAs of 256 or one of 256 per SM, and bulk stores through
+// a shared stage timed the same or slower (PERF.md §6).
 //
 // Bound on the H100: integer multiplies, as B4: 192 bytes move per
 // permutation against 1,122 GL multiplies, so overlapping the copies can
@@ -41,20 +41,10 @@
 
 namespace {
 
-constexpr int kTile = 2048;  // states per tile (exp_stream.py's BLK)
-constexpr int kMaxRing = 4;
+constexpr int kTile = 2048;    // states per tile (exp_stream.py's BLK)
+constexpr int kThreads = 512;  // a CTA's threads: the states of one step
+constexpr int kRing = 3;       // shared stages in the ring
 using poseidon::T;
-
-struct Design {
-  int ring;     // stages in the ring, 2..kMaxRing
-  int per_sm;   // CTAs per SM asked for
-  int threads;  // 256 or 512 a CTA
-};
-
-// The design poseidon_stream runs: one CTA of 512 per SM.  On the H100 it
-// times as B4 (1.00× at 2^22, 0.98× at 2^25 states; PERF.md §6 has every
-// design's time).
-constexpr Design kDefault = {3, 1, 512};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -103,16 +93,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS, 512 / THREADS)
-stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long batch,
-              int ring) {
-  constexpr int kWarps = THREADS / 32;
-  constexpr int kStepsPerTile = kTile / THREADS;
-  constexpr int kRowBytes = THREADS * 8;
-  // ring stages of (T, THREADS) words
+__global__ void __launch_bounds__(kThreads, 1)
+stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long long batch) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kStepsPerTile = kTile / kThreads;
+  constexpr int kRowBytes = kThreads * 8;
+  // kRing stages of (T, kThreads) words
   extern __shared__ __align__(128) uint64_t smem[];
-  __shared__ __align__(8) uint64_t full[kMaxRing], empty[kMaxRing];
+  __shared__ __align__(8) uint64_t full[kRing], empty[kRing];
   const int tid = threadIdx.x;
   const long long n_tiles = batch / kTile;
   const long long my_tiles =
@@ -121,19 +109,19 @@ stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long 
   // first column of this CTA's step st
   auto col0 = [&](long long st) {
     return (blockIdx.x + (st / kStepsPerTile) * gridDim.x) * kTile +
-           (st % kStepsPerTile) * THREADS;
+           (st % kStepsPerTile) * kThreads;
   };
-  auto stage = [&](int slot) { return smem + (long long)slot * T * THREADS; };
+  auto stage = [&](int slot) { return smem + (long long)slot * T * kThreads; };
   auto issue = [&](long long st, int slot) {  // thread 0
     mbar_expect_tx(&full[slot], T * kRowBytes);
     const long long c0 = col0(st);
 #pragma unroll
     for (int i = 0; i < T; ++i)
-      bulk_load(stage(slot) + i * THREADS, in + i * batch + c0, kRowBytes, &full[slot]);
+      bulk_load(stage(slot) + i * kThreads, in + i * batch + c0, kRowBytes, &full[slot]);
   };
 
   if (tid == 0) {
-    for (int r = 0; r < ring; ++r) {
+    for (int r = 0; r < kRing; ++r) {
       mbar_init(&full[r], 1);
       mbar_init(&empty[r], kWarps);
     }
@@ -141,21 +129,21 @@ stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long 
   }
   __syncthreads();
   if (tid == 0)
-    for (int r = 0; r < ring && r < n_steps; ++r) issue(r, r);
+    for (int r = 0; r < kRing && r < n_steps; ++r) issue(r, r);
 
 #pragma unroll 1
   for (long long st = 0; st < n_steps; ++st) {
-    const int slot = (int)(st % ring);
-    if (tid == 0 && st > 0 && st - 1 + ring < n_steps) {
-      const int prev = (int)((st - 1) % ring);
-      mbar_wait(&empty[prev], (uint32_t)(((st - 1) / ring) & 1));
-      issue(st - 1 + ring, prev);
+    const int slot = (int)(st % kRing);
+    if (tid == 0 && st > 0 && st - 1 + kRing < n_steps) {
+      const int prev = (int)((st - 1) % kRing);
+      mbar_wait(&empty[prev], (uint32_t)(((st - 1) / kRing) & 1));
+      issue(st - 1 + kRing, prev);
     }
     __syncthreads();  // every warp starts the step together
-    mbar_wait(&full[slot], (uint32_t)((st / ring) & 1));
+    mbar_wait(&full[slot], (uint32_t)((st / kRing) & 1));
     uint64_t s[1][T];
 #pragma unroll
-    for (int i = 0; i < T; ++i) s[0][i] = stage(slot)[i * THREADS + tid];
+    for (int i = 0; i < T; ++i) s[0][i] = stage(slot)[i * kThreads + tid];
     __syncwarp();
     if (tid % 32 == 0) mbar_arrive(&empty[slot]);
     poseidon_fast::permute<poseidon_fast::B4Schedule>(s);
@@ -165,59 +153,26 @@ stream_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, long 
   }
 }
 
-// Launch a design: per_sm CTAs on each SM, or as many as fit, never more
-// CTAs than tiles; *grid gets the CTAs launched.
-template <int THREADS>
-int launch(const uint64_t* in, uint64_t* out, long long batch, const Design& d, int* grid,
-           cudaStream_t stream) {
-  const int smem = d.ring * T * THREADS * 8;  // at most 192 KiB
-  int device = 0, sms = 0, fit = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stream_kernel<THREADS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(stream_kernel<THREADS>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, stream_kernel<THREADS>, THREADS,
-                                                        smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = batch / kTile;
-  const long long g = (long long)sms * (fit < d.per_sm ? (fit > 0 ? fit : 1) : d.per_sm);
-  *grid = (int)(g > n_tiles ? n_tiles : g);
-  stream_kernel<THREADS><<<(unsigned)*grid, THREADS, smem, stream>>>(in, out, batch, d.ring);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // in/out: (12, batch) u64 on the card, batch a multiple of 2048, both
-// 16-byte aligned.  design: {ring 2..4, CTAs per SM asked for, threads
-// 256 or 512 a CTA}.  *grid gets the CTAs launched.  Returns the CUDA
-// error of the launch, or -1 for a design out of range.
-extern "C" int poseidon_stream_design(const void* in, void* out, long long batch,
-                                      const int* design, int* grid, void* stream) {
-  const Design d = {design[0], design[1], design[2]};
-  *grid = 0;
-  if (d.ring < 2 || d.ring > kMaxRing || d.per_sm < 1 || (d.threads != 256 && d.threads != 512))
-    return -1;
-  if (batch <= 0) return 0;
-  const auto f = d.threads == 256 ? launch<256> : launch<512>;
-  return f((const uint64_t*)in, (uint64_t*)out, batch, d, grid, (cudaStream_t)stream);
-}
-
-// The design poseidon_stream runs, as poseidon_stream_design takes it.
-extern "C" void poseidon_stream_default(int* design) {
-  design[0] = kDefault.ring;
-  design[1] = kDefault.per_sm;
-  design[2] = kDefault.threads;
-}
-
+// 16-byte aligned.  One CTA on each SM, never more CTAs than tiles.
+// Returns the CUDA error of the launch.
 extern "C" int poseidon_stream(const void* in, void* out, long long batch, void* stream) {
-  int design[3], grid = 0;
-  poseidon_stream_default(design);
-  return poseidon_stream_design(in, out, batch, design, &grid, stream);
+  if (batch <= 0) return 0;
+  constexpr int smem = kRing * T * kThreads * 8;  // 144 KiB
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_tiles = batch / kTile;
+  const unsigned grid = (unsigned)(sms < n_tiles ? sms : n_tiles);
+  stream_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>((const uint64_t*)in,
+                                                                 (uint64_t*)out, batch);
+  return (int)cudaGetLastError();
 }

@@ -28,10 +28,12 @@ does a name with two probes.
 CPU tensor it runs ``permute_variant_plain``; any other device raises.
 
     python -m pil2_stark_tpu_torch.tools.exp_poseidon [variant[:block] ...]
+    python -m pil2_stark_tpu_torch.tools.exp_poseidon decompose  # one JSON line
 """
 from __future__ import annotations
 
 import ctypes
+import json
 import sys
 from dataclasses import dataclass
 
@@ -255,12 +257,16 @@ def run_sustained(variant: str, block: int = 2048, batch: int = 1 << 16, device=
 
 def decompose(device=None, bits=(22, 25), block: int = 256, chain=(5, 3),
               seed: int = 0) -> dict:
-    """B4's time split by the probes.  At each 2^bits random states, in one
-    run, at one state a thread by default (block 256, B4's geometry): B4 (before and after the rest), the control, ``packed-lazy``,
-    each base of DECOMPOSITION and each of its probes, as chains of
-    chain[0] calls, the best of chain[1].  A base minus its probe is the
-    time of the work the probe drops, given in ms and as a share of B4's
-    mean; the control minus the probe beside it."""
+    """The permutation's time split by the probes.  At each 2^bits random
+    states, in one run, at one state a thread by default (block 256, B4's
+    geometry): B4 (before and after the rest), the control,
+    ``packed-lazy``, each base of DECOMPOSITION and each of its probes, as
+    chains of chain[0] calls, the best of chain[1].  A base minus its probe
+    is the time of the work the probe drops, given in ms and as a share of
+    that base.  The bases are canonical (a probe on ``lazy`` is refused),
+    so the dropped time includes the canons that follow the dropped
+    reductions: of B4's lazy schedule it is an upper bound.  The control
+    minus the probe stands beside it."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     res = {"device": _device_name(dev), "block": block, "sizes": {}}
@@ -274,13 +280,14 @@ def decompose(device=None, bits=(22, 25), block: int = 256, chain=(5, 3),
         b4.append(chain_ms(cp.permute, x, *chain))
         mean = sum(b4) / 2
         drops = {probe: {"base": base, "dropped_ms": ms[base] - ms[probe],
-                         "share_of_b4": (ms[base] - ms[probe]) / mean,
+                         "share_of_base": (ms[base] - ms[probe]) / ms[base],
                          "control_minus_probe_ms": ms[CONTROL] - ms[probe]}
                  for base, probes in DECOMPOSITION.items() for probe in probes}
         res["sizes"][b] = {"b4_ms": b4, "ms": ms, "vs_b4": {v: t / mean for v, t in ms.items()},
                            "drops": drops}
         print(f"decompose 2^{b}: B4 {b4[0]:.3f}/{b4[1]:.3f} ms, control {ms[CONTROL]:.3f} ms, "
-              + ", ".join(f"{p} drops {d['share_of_b4']:.1%}" for p, d in drops.items())
+              + ", ".join(f"{p} drops {d['share_of_base']:.1%} of {d['base']}"
+                         for p, d in drops.items())
               + f" ({res['device']})", flush=True)
         del x
     return res
@@ -299,4 +306,7 @@ def main(argv=None, batch: int = 1 << 16, device=None) -> list[dict]:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["decompose"]:
+        print(json.dumps(decompose()))
+        sys.exit(0)
     sys.exit(0 if all(r["ok"] for r in main(sys.argv[1:])) else 1)

@@ -5,27 +5,21 @@ stages (csrc/poseidon_stream.cu), and the tool that times it.
 Counterpart of tools/exp_stream.py (``build_stream`` :108, ``main`` :130).
 The question it asks is whether overlapping the copies of the next tile
 with the permutation of this one pays; on the card it asks it of B4's
-schedule, against B4 itself (``compare_designs``).  Its plain version is
-B4's (hash/cuda_poseidon.py::permute_plain): the same function, any u64
-in.
+schedule (chip_smoke.py's tools phase times it beside B4).  Its plain
+version is B4's (hash/cuda_poseidon.py::permute_plain): the same
+function, any u64 in.
 
 ``build_stream(n_blocks)`` returns a callable on planar (12, n_blocks·2048)
 int64 tensors.  On a CUDA tensor it launches X1 (building it at first use)
 and counts ``permute_stream.launches``; on a CPU tensor it runs the plain
-version; any other device raises.  ``permute_stream(state, design=)``
-runs another design of the kernel: a ``Design`` of ring stages, CTAs per
-SM and threads per CTA.
+version; any other device raises.
 
     python -m pil2_stark_tpu_torch.tools.exp_stream            # check and time
-    python -m pil2_stark_tpu_torch.tools.exp_stream designs    # every design beside B4
 """
 from __future__ import annotations
 
 import ctypes
-import itertools
-import json
 import sys
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,53 +34,24 @@ from ..utils.timing import chain_ms
 P = gl.P_INT
 T = cp.T
 BLK = 2048  # states per tile (pallas_poseidon._BLOCK)
-MAX_RING = 4  # csrc/poseidon_stream.cu kMaxRing
-
-
-class Design(NamedTuple):
-    ring: int  # shared stages in the ring, 2..MAX_RING
-    per_sm: int  # CTAs per SM asked for (fewer if they do not fit)
-    threads: int  # a CTA's threads, 256 or 512 (states a step)
-
-
-# every design compare_designs times by default: each ring depth with two
-# CTAs of 256 threads, one of 256 or one of 512 per SM
-DESIGNS = tuple(Design(r, k, th) for r, (th, k) in itertools.product(
-    range(2, MAX_RING + 1), ((256, 2), (256, 1), (512, 1))))
 
 
 def _lib():
     lib = cuda_build.lib("poseidon_stream")
     if not getattr(lib, "_typed", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp = ctypes.c_void_p
         lib.poseidon_stream.argtypes = [vp, vp, ctypes.c_longlong, vp]
-        lib.poseidon_stream.restype = i
-        lib.poseidon_stream_design.argtypes = [vp, vp, ctypes.c_longlong, ctypes.POINTER(i),
-                                               ctypes.POINTER(i), vp]
-        lib.poseidon_stream_design.restype = i
-        lib.poseidon_stream_default.argtypes = [ctypes.POINTER(i)]
-        lib.poseidon_stream_default.restype = None
+        lib.poseidon_stream.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def default_design() -> Design:
-    """The design the kernel runs when none is given (built on first use)."""
-    v = (ctypes.c_int * 3)()
-    _lib().poseidon_stream_default(v)
-    return Design(*v)
-
-
-def permute_stream(state: torch.Tensor, design: Design | None = None) -> torch.Tensor:
+def permute_stream(state: torch.Tensor) -> torch.Tensor:
     """X1 on a CUDA tensor, B4's plain version on a CPU tensor; the batch
-    must be a multiple of 2048.  `design` None runs the kernel's own
-    design; the CTAs a launch used are in ``permute_stream.grid``."""
+    must be a multiple of 2048."""
     if state.dim() != 2 or state.shape[0] != T or state.shape[1] % BLK:
         raise ValueError(f"poseidon stream: want (12, a multiple of {BLK}), "
                          f"got {tuple(state.shape)}")
-    if design is not None and not (2 <= design.ring <= MAX_RING and design.per_sm >= 1
-                                   and design.threads in (256, 512)):
-        raise ValueError(f"poseidon stream: design out of range: {design}")
     if state.device.type == "cpu":
         return cp.permute_plain(state)
     if state.device.type != "cuda":
@@ -99,24 +64,14 @@ def permute_stream(state: torch.Tensor, design: Design | None = None) -> torch.T
         raise ValueError("poseidon stream: bulk copies need 16-byte aligned tensors")
     stream = ctypes.c_void_p(torch.cuda.current_stream(state.device).cuda_stream)
     with torch.cuda.device(state.device):
-        if design is None:
-            rc = _lib().poseidon_stream(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
-            grid = None
-        else:
-            g = ctypes.c_int(0)
-            rc = _lib().poseidon_stream_design(state.data_ptr(), out.data_ptr(), state.shape[1],
-                                               (ctypes.c_int * 3)(*design),
-                                               ctypes.byref(g), stream)
-            grid = g.value
+        rc = _lib().poseidon_stream(state.data_ptr(), out.data_ptr(), state.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"poseidon_stream launch failed: CUDA error {rc}")
     permute_stream.launches += 1
-    permute_stream.grid = grid
     return out
 
 
 permute_stream.launches = 0
-permute_stream.grid = None
 
 
 def build_stream(n_blocks: int):
@@ -155,47 +110,5 @@ def main(device=None, check_bits: int = 14, bench_bits=(16, 17, 20)) -> dict:
     return res
 
 
-def compare_designs(device=None, bits=(22, 25), designs=DESIGNS, seed: int = 0,
-                    chain=(5, 3)) -> dict:
-    """Every design of X1 beside B4 on the same 2^bits random states: each
-    output must equal B4's; times are chains of chain[0] calls, the best
-    of chain[1], with B4 timed before and after the designs.  Returns, per size, B4's
-    two times and each design's ms, CTAs launched and ratio to B4's
-    mean."""
-    dev = resolve_device(device)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    rng = np.random.default_rng(seed)
-    res = {"device": name, "ok": True, "sizes": {}}
-    for b in bits:
-        n = 1 << b
-        x = gl.from_u64(rng.integers(0, P, size=(T, n), dtype=np.uint64), dev)
-        want = cp.permute(x)
-        b4_before = chain_ms(cp.permute, x, *chain)
-        rows = []
-        for d in designs:
-            got = permute_stream(x, d)
-            same = bool(torch.equal(got, want))
-            del got
-            ms = chain_ms(lambda s: permute_stream(s, d), x, *chain)
-            rows.append({**d._asdict(), "grid": permute_stream.grid, "ms": ms,
-                         "equal_b4": same})
-            res["ok"] &= same
-        b4_after = chain_ms(cp.permute, x, *chain)
-        b4 = (b4_before + b4_after) / 2
-        for r in rows:
-            r["vs_b4"] = r["ms"] / b4
-        res["sizes"][b] = {"b4_ms": [b4_before, b4_after], "designs": rows}
-        best = min(rows, key=lambda r: r["ms"])
-        print(f"stream 2^{b}: B4 {b4_before:.3f}/{b4_after:.3f} ms, best design "
-              f"{Design(*(best[k] for k in Design._fields))} {best['ms']:.3f} ms ({name})",
-              flush=True)
-        del x, want
-    return res
-
-
 if __name__ == "__main__":
-    if sys.argv[1:] == ["designs"]:  # every design beside B4, one JSON line
-        res = compare_designs()
-        print(json.dumps(res))
-        sys.exit(0 if res["ok"] else 1)
     sys.exit(0 if main()["ok"] else 1)

@@ -4,7 +4,7 @@ python-int twin of the schedule template that both instantiate
 (hash/cuda_poseidon.py::permute_schedule_int, csrc/poseidon_fast.cuh
 Schedule) against each variant's plain version, the control variant
 ``packed-nosq-lazy`` against B4 and the JAX experiment's body, and X1's
-designs on their CPU path.  Tolerance: none — bit for bit.  torch runs on
+wrapper on its CPU path.  Tolerance: none — bit for bit.  torch runs on
 one thread.
 """
 import numpy as np
@@ -79,23 +79,21 @@ def test_sqr_wide_and_add_c_at_extremes():
         assert cuda_poseidon.canon(a) == a % P
 
 
-def test_stream_designs_on_cpu():
-    """X1's designs: ring depths × CTA shapes, each out of range refused;
-    on the CPU every design runs B4's plain version, and compare_designs
-    finds each equal to B4."""
-    designs = exp_stream.DESIGNS
-    assert len(set(designs)) == len(designs) == 3 * 3
-    assert {(d.threads, d.per_sm) for d in designs} == {(256, 2), (256, 1), (512, 1)}
-    x = torch_gl.from_u64(_states(exp_stream.BLK, 9).T.copy())
-    for bad in (exp_stream.Design(1, 2, 256), exp_stream.Design(5, 2, 256),
-                exp_stream.Design(2, 0, 256), exp_stream.Design(2, 1, 1024)):
-        with pytest.raises(ValueError):
-            exp_stream.permute_stream(x, bad)
-    assert torch.equal(exp_stream.permute_stream(x, exp_stream.DESIGNS[-1]),
-                       cuda_poseidon.permute_plain(x))
-    res = exp_stream.compare_designs("cpu", bits=(11,), designs=exp_stream.DESIGNS[:2],
-                                     chain=(1, 1))
-    assert res["ok"] and [d["equal_b4"] for d in res["sizes"][11]["designs"]] == [True, True]
+def test_stream_on_cpu():
+    """X1's wrapper on the CPU over two tiles: any u64 words (non-canonical
+    ones included) give B4's python-int twin's output, no launch is
+    counted, and a batch of 11 rows is refused."""
+    states = _states(2 * exp_stream.BLK, 9)
+    states[5] = np.array([P, P + 1, W, W - 1, P + 5, P + (1 << 31), 0, 1, 2, P - 1, 3, 4],
+                         dtype=np.uint64)
+    x = torch_gl.from_u64(states.T.copy())
+    before = exp_stream.permute_stream.launches
+    got = torch_gl.to_u64(exp_stream.build_stream(2)(x)).T
+    assert exp_stream.permute_stream.launches == before
+    for k in (0, 1, 2, 3, 5, exp_stream.BLK + 7):
+        assert [int(w) for w in got[k]] == cuda_poseidon.permute_fast_int(states[k]), k
+    with pytest.raises(ValueError):
+        exp_stream.permute_stream(x[:11])
 
 
 def test_decompose_on_cpu():
